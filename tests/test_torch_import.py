@@ -1,0 +1,59 @@
+"""The port stands alone: importing every module of `mneslam_tpu_torch`
+loads neither JAX nor the JAX package, and no source file names them."""
+
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import mneslam_tpu_torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.dirname(mneslam_tpu_torch.__file__)
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        [PKG], prefix="mneslam_tpu_torch."))
+
+
+def test_every_module_imports_without_jax():
+    mods = _modules()
+    assert "mneslam_tpu_torch.kernels.scatter_add_rows" in mods
+    assert "mneslam_tpu_torch.slam" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'optax' or m == 'mneslam_tpu' or "
+        "m.startswith('mneslam_tpu.'))\n"
+        "print('BAD', bad)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=REPO, env=env, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "BAD []" in r.stdout, r.stdout
+
+
+# an import of jax / optax / the JAX package, or a dotted reference to it
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|optax)\b"
+                       r"|^\s*(import|from)\s+mneslam_tpu\b(?!_torch)"
+                       r"|\bmneslam_tpu\.")
+
+
+def test_sources_name_no_jax():
+    hits = []
+    for root, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith((".py", ".cu", ".cuh")):
+                path = os.path.join(root, f)
+                with open(path) as fh:
+                    hits += [f"{path}:{i}: {line.strip()}"
+                             for i, line in enumerate(fh, 1)
+                             if FORBIDDEN.search(line)]
+    assert not hits, hits
+    assert FORBIDDEN.search("import jax.numpy as jnp")
+    assert FORBIDDEN.search("from mneslam_tpu.ops import interp")
+    assert not FORBIDDEN.search("from mneslam_tpu_torch.ops import interp")
