@@ -1,11 +1,12 @@
-"""Command-line entry: one agent, mapping-only mode.
+"""Command-line entry: one agent, SLAM or mapping-only mode.
 
-    python -m mneslam_tpu_torch.cli --config CONFIG.yaml --mode mapping \
-        [--output OUT] [--device cuda|cpu]
+    python -m mneslam_tpu_torch.cli --config CONFIG.yaml \
+        [--mode slam|mapping] [--output OUT] [--device cuda|cpu]
 
 Runs on the GPU by default and raises when there is none, unless
-`--device cpu` is given. Port of the single-agent mapping path of
-`mneslam_tpu/cli.py`; the multi-agent runner is not ported yet.
+`--device cpu` is given. `--mode` overrides the config's `mode`. Port of
+the single-agent paths of `mneslam_tpu/cli.py`; the multi-agent runner is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -15,9 +16,10 @@ import argparse
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description="MNESLAM mapping-only run (PyTorch/CUDA port)")
+        description="MNESLAM single-agent run (PyTorch/CUDA port)")
     ap.add_argument("--config", required=True)
-    ap.add_argument("--mode", choices=["mapping"], default="mapping")
+    ap.add_argument("--mode", choices=["slam", "mapping"], default=None,
+                    help="default: the config's mode (slam if unset)")
     ap.add_argument("--output", default=None)
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda; cpu only "
@@ -31,10 +33,14 @@ def main(argv=None):
     cfg = deep_update(default_config(), load_config(args.config))
     if args.output:
         cfg["data"]["output"] = args.output
-    cfg["mode"] = args.mode
+    if args.mode is not None:
+        cfg["mode"] = args.mode
     agent = MNESLAM(cfg, get_dataset(cfg), rank=0, device=args.device)
-    agent.run_mapping_only()
-    result = agent.terminate()
+    if agent.mode == "slam":
+        result = agent.run_slam()
+    else:
+        agent.run_mapping_only()
+        result = agent.terminate()
     print(f"agent 0: {result}")
     return result
 

@@ -1,10 +1,12 @@
-"""Carry JAX-package parameters (and Adam moments) into the port.
+"""Carry JAX-package parameters, Adam moments and tracker state into the
+port.
 
-The input is the JAX `SceneRep.init_params` tree with every leaf already a
-numpy array (nested dicts and lists; the caller applies
-`jax.tree.map(np.asarray, ...)`), so this module needs no JAX. Planes stay
-[C, H, W] and decoder weights stay [in, out]: the port applies them as
-`x @ W`, as the JAX package does, so nothing is transposed.
+Inputs are JAX trees with every leaf already a numpy array (nested dicts
+and lists; the caller applies `jax.tree.map(np.asarray, ...)`), so this
+module needs no JAX. Map planes stay [C, H, W] and decoder weights stay
+[in, out] (the port applies them as `x @ W`, as the JAX package does);
+DROID conv weights are torch-layout in both packages. Nothing is
+transposed.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from ..models.scene_rep import param_items
+from ..tracking.video import VideoState
 
 
 def _map_tree(tree, fn):
@@ -30,6 +33,31 @@ def params_from_jax(tree_of_numpy: Dict, device="cpu") -> Dict:
     float32 leaf tensors with requires_grad."""
     return _map_tree(tree_of_numpy, lambda a: torch.tensor(
         np.asarray(a, np.float32), device=device, requires_grad=True))
+
+
+def droid_params_from_jax(tree_of_numpy: Dict, device="cpu") -> Dict:
+    """JAX DROID params (`init_droid_net` / `load_droid_weights` tree of
+    numpy arrays) -> the port's params: float32 tensors, no grad."""
+    return _map_tree(tree_of_numpy, lambda a: torch.tensor(
+        np.asarray(a, np.float32), device=device))
+
+
+def video_state_from_numpy(arrays, device="cpu",
+                           feat_dtype: torch.dtype = torch.float32
+                           ) -> VideoState:
+    """A JAX `VideoState` as numpy arrays (a dict, or anything with the
+    fields as attributes) -> the port's `VideoState`; the feature buffers
+    in `feat_dtype`, the rest float32."""
+    feats = ("fmaps", "nets", "inps")
+
+    def get(name):
+        a = arrays[name] if isinstance(arrays, dict) else getattr(arrays,
+                                                                  name)
+        return torch.tensor(np.asarray(a, np.float32), device=device,
+                            dtype=feat_dtype if name in feats
+                            else torch.float32)
+
+    return VideoState(*(get(f) for f in VideoState._fields))
 
 
 def params_to_numpy(params: Dict) -> Dict:

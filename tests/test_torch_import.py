@@ -20,8 +20,12 @@ def _modules():
 
 def test_every_module_imports_without_jax():
     mods = _modules()
-    assert "mneslam_tpu_torch.kernels.scatter_add_rows" in mods
-    assert "mneslam_tpu_torch.slam" in mods
+    for m in ("kernels.scatter_add_rows", "kernels.corr_window", "slam",
+              "models.nn", "models.droid_net", "ops.lie", "ops.projective",
+              "ops.correlation", "ops.ba", "tracking.video",
+              "tracking.graph", "tracking.motion_filter",
+              "tracking.frontend", "tracking.tracker"):
+        assert f"mneslam_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

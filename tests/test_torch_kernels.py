@@ -6,17 +6,23 @@ skips without one. On a machine with a GPU and nvcc, run them with
     python -m pytest tests/test_torch_kernels.py --noconftest -q
 
 (`--noconftest`: the suite's conftest configures JAX, which these tests
-do not use). Tolerance: atomics add a row's duplicates in a run-dependent
-order, so each output may move by up to 5e-5 of the sum of the magnitudes
-added into it (plus 1e-6).
+do not use). Tolerances: for the scatter, atomics add a row's duplicates
+in a run-dependent order, so each output may move by up to 5e-5 of the sum
+of the magnitudes added into it (plus 1e-6); for the correlation windows,
+kernel and plain version each sum C = 128 fp32 products in their own
+order, so they differ by at most 2 * 128 * 2^-24 of the dot of the
+magnitudes (plus 1e-7).
 """
 
 import pytest
 import torch
 
+from mneslam_tpu_torch.kernels.corr_window import (
+    corr_window, corr_window_multilevel, corr_window_multilevel_plain,
+    corr_window_plain)
 from mneslam_tpu_torch.kernels.scatter_add_rows import (
     scatter_add_rows, scatter_add_rows_plain)
-from mneslam_tpu_torch.ops import interp
+from mneslam_tpu_torch.ops import correlation, interp
 
 pytestmark = pytest.mark.cuda
 
@@ -104,3 +110,94 @@ def test_sampler_backward_on_gpu_matches_cpu(cuda):
                                atol=1e-4)
     torch.testing.assert_close(grads[1][1], grads[0][1], rtol=1e-4,
                                atol=1e-4)
+
+
+CORR_RTOL = 2 * 128 * 2.0 ** -24
+
+
+def _corr_inputs(N, H, W, E, n_masked, device, seed=0, C=128):
+    """Feature rows, padded levels, slab starts and mask the way
+    `correlation.alt_corr` builds them, with lookup centres inside, near
+    and far outside the image."""
+    g = torch.Generator().manual_seed(seed)
+    fmaps = torch.randn((N, C, H, W), generator=g)
+    coords = torch.stack([torch.rand((E, H, W), generator=g) * (W + 40) - 20,
+                          torch.rand((E, H, W), generator=g) * (H + 40) - 20],
+                         dim=-1)
+    pyr = correlation.build_pyramid(fmaps.to(device))
+    f1 = pyr[0].permute(0, 2, 3, 1).reshape(N, H * W, C).contiguous()
+    levels, w2ps, xs, _ = correlation._padded_levels(pyr, coords.to(device),
+                                                     3)
+    ii = torch.randint(0, N, (E,), generator=g).int().to(device)
+    jj = torch.randint(0, N, (E,), generator=g).int().to(device)
+    mask = torch.ones(E, dtype=torch.int32)
+    mask[E - n_masked:] = 0
+    return f1, levels, ii, jj, xs, w2ps, mask.to(device)
+
+
+def _assert_corr_close(got, ref, mag):
+    assert bool(((got - ref).abs() <= CORR_RTOL * mag + 1e-7).all())
+
+
+@pytest.mark.parametrize("N,H,W,E,n_masked", [
+    (6, 12, 16, 5, 2),
+    (26, 40, 80, 91, 16),     # a room0 frontend update: 91 slots, 75 real
+    (2, 40, 80, 1, 0),        # the room0 motion filter's lookup
+    (3, 13, 21, 4, 1),        # HW not a multiple of the pixel tile
+])
+def test_corr_window_multilevel_matches_plain(cuda, N, H, W, E, n_masked):
+    f1, levels, ii, jj, xs, w2ps, mask = _corr_inputs(N, H, W, E, n_masked,
+                                                      cuda)
+    before = corr_window_multilevel.launches
+    got = corr_window_multilevel(f1, levels, ii, jj, xs, w2ps, mask=mask)
+    assert corr_window_multilevel.launches == before + 1
+    ref = corr_window_multilevel_plain(f1, levels, ii, jj, xs, w2ps,
+                                       mask=mask)
+    mag = corr_window_multilevel_plain(f1.abs(), [lv.abs() for lv in levels],
+                                       ii, jj, xs, w2ps, mask=mask)
+    torch.cuda.synchronize()
+    assert got.shape == (E, H * W, 4, 64) and got.dtype == torch.float32
+    _assert_corr_close(got, ref, mag)
+    assert not got[mask == 0].any()                 # masked: zeros
+    if n_masked == 0:
+        assert got.abs().max() > 0
+
+
+def test_corr_window_per_level_matches_plain(cuda):
+    f1, levels, ii, jj, xs, w2ps, _ = _corr_inputs(5, 40, 80, 12, 0, cuda)
+    for lvl in range(4):
+        xl = xs[..., lvl].contiguous()
+        before = corr_window.launches
+        got = corr_window(f1, levels[lvl], ii, jj, xl, w2ps[lvl])
+        assert corr_window.launches == before + 1
+        assert got.shape == (12, 3200, 64)
+        _assert_corr_close(got, corr_window_plain(f1, levels[lvl], ii, jj,
+                                                  xl, w2ps[lvl]),
+                           corr_window_plain(f1.abs(), levels[lvl].abs(), ii,
+                                             jj, xl, w2ps[lvl]))
+
+
+def test_corr_window_rejects_bad_inputs(cuda):
+    f1, levels, ii, jj, xs, w2ps, mask = _corr_inputs(3, 12, 16, 2, 0, cuda,
+                                                      C=48)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        corr_window_multilevel(f1, levels, ii, jj, xs, w2ps)
+    f1, levels, ii, jj, xs, w2ps, mask = _corr_inputs(3, 12, 16, 2, 0, cuda)
+    with pytest.raises(TypeError, match="int32"):
+        corr_window_multilevel(f1, levels, ii.long(), jj, xs, w2ps)
+    with pytest.raises(ValueError, match="f1_rows on"):
+        corr_window_multilevel(f1, levels, ii.cpu(), jj, xs, w2ps)
+
+
+def test_alt_corr_on_gpu_matches_cpu(cuda):
+    g = torch.Generator().manual_seed(1)
+    fmaps = torch.randn((4, 128, 24, 32), generator=g)
+    coords = torch.rand((6, 24, 32, 2), generator=g) * 60 - 14
+    ii = torch.tensor([0, 1, 2, 3, 0, 1])
+    jj = torch.tensor([1, 2, 3, 0, 2, 1])
+    mask = torch.tensor([1, 1, 0, 1, 1, 0])
+    out = [correlation.alt_corr(fmaps.to(d), ii.to(d), jj.to(d),
+                                coords.to(d), mask=mask.to(d)).cpu()
+           for d in ("cpu", cuda)]
+    torch.testing.assert_close(out[1], out[0], rtol=1e-4, atol=1e-5)
+    assert not out[1][mask == 0].any()

@@ -1,5 +1,7 @@
-"""Port of the mapping-only pipeline (`mneslam_tpu_torch.slam`, `.cli`,
-`.configs`) against the JAX package, on the CPU at a tiny size."""
+"""Port of the single-agent pipeline (`mneslam_tpu_torch.slam`, `.cli`,
+`.configs`) against the JAX package, on the CPU at a tiny size: mapping-only
+mode, and SLAM mode with an oracle tracker update (the published DROID
+weights are not in the repository)."""
 
 import json
 import os
@@ -169,7 +171,7 @@ def test_unported_dataset_and_mode_raise(tmp_path):
 
     with pytest.raises(ValueError, match="replica"):
         get_dataset(pconfig.make_config({"dataset": "replica"}))
-    cfg = pconfig.make_config(dict(_overrides(tmp_path), mode="slam"))
+    cfg = pconfig.make_config(dict(_overrides(tmp_path), mode="tracking"))
     with pytest.raises(ValueError, match="mapping"):
         MNESLAM(cfg, SyntheticBoxDataset(cfg, num_frames=3), device="cpu")
 
@@ -202,3 +204,174 @@ def test_room0_matches_the_yaml_files(monkeypatch):
         for k in keys:
             got = got[k]
         assert got == v, keys
+
+
+# ---------------------------------------------------------------------------
+# SLAM mode
+# ---------------------------------------------------------------------------
+
+FLIP = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
+# key poses of the tiny oracle run against the dataset's poses (the JAX
+# test_slam_full holds its trajectory to 5 cm APE)
+KEY_POSE_TOL_M = 0.05
+
+
+def _slam_overrides(tmp_path, **tracking):
+    H, W = 64, 96
+    tr = {
+        "buffer": 24, "warmup": 5, "upsample": False,
+        "motion_filter": {"thresh": -1.0, "batch": 4},   # admit every frame
+        "frontend": {"enable_loop": False, "keyframe_thresh": -1.0,
+                     "window": 10, "radius": 1, "max_factors": 30,
+                     "nms": 0, "thresh": 25.0},
+    }
+    for k, v in tracking.items():
+        if isinstance(v, dict):
+            tr[k].update(v)
+        else:
+            tr[k] = v
+    return {
+        "mode": "slam",
+        "data": {"output": str(tmp_path), "exp_name": "slam"},
+        "mapping": {"bound": [[-2.2, 2.2]] * 3, "sample": 128,
+                    "min_pixels_cur": 32, "first_iters": 10, "iters": 2,
+                    "keyframe_every": 4, "global_ba_every": 1000},
+        "planes_res": {"coarse": 0.44, "fine": 0.22,
+                       "bound_dividable": 0.22},
+        "cam": {"H": H, "W": W, "fx": 60.0, "fy": 60.0, "cx": 47.5,
+                "cy": 31.5, "H_out": H, "W_out": W, "near": 0.0, "far": 8.0},
+        "training": {"n_range_d": 9, "n_samples_d": 8, "range_d": 0.25,
+                     "trunc": 0.15},
+        "model": {"c_dim": 16, "input_ch": 32, "input_ch_pos": 48,
+                  "truncation": 0.15},
+        "tracking": tr,
+    }
+
+
+def _oracle(dataset, intr8):
+    """update_fn / agg_fn giving ground-truth reprojection targets (the
+    port of tests/test_slam_full.py:25-50)."""
+    from mneslam_tpu_torch.ops import lie, projective
+
+    G0 = dataset[0]["c2w"]
+    table = []
+    for i in range(len(dataset)):
+        C = FLIP @ np.linalg.inv(G0) @ dataset[i]["c2w"] @ FLIP
+        table.append(lie.from_matrix(torch.tensor(
+            np.linalg.inv(C).astype(np.float32))))
+    gt_table = torch.stack(table)
+
+    def update_fn(params, state, ii, jj, net, corr, motion, coords1):
+        idx = state.timestamps.long().clamp(0, len(gt_table) - 1)
+        tgt, valid = projective.projective_transform(
+            gt_table[idx], state.disps_sens, intr8, ii, jj)
+        return net, tgt - coords1, valid.expand(tgt.shape)
+
+    def agg_fn(params, net, ii, mask, n):
+        h, w = net.shape[2:]
+        return 1e-4 * torch.ones((net.shape[0], h, w)), \
+            torch.zeros((n, 576, h, w))
+
+    return update_fn, agg_fn
+
+
+def _slam(tmp_path, num_frames, **tracking):
+    cfg = pconfig.make_config(_slam_overrides(tmp_path, **tracking))
+    ds = SyntheticBoxDataset(cfg, num_frames=num_frames)
+    intr8 = torch.tensor([60.0 / 8, 60.0 / 8, 47.5 / 8, 31.5 / 8])
+    update_fn, agg_fn = _oracle(ds, intr8)
+    slam = MNESLAM(cfg, ds, rank=0, device="cpu", update_fn=update_fn,
+                   agg_fn=agg_fn)
+    return slam, ds
+
+
+def test_slam_mode_oracle_recovers_key_poses(tmp_path):
+    slam, ds = _slam(tmp_path, num_frames=14)
+    res = slam.run_slam()
+    assert slam.tracker.counter == 14 and res["tracked_keyframes"] == 14
+    assert slam.map_counter == 13                # one keyframe behind
+    key_poses = np.load(os.path.join(slam.out_dir, "key_est_poses.npy"))
+    key_ts = np.load(os.path.join(slam.out_dir, "key_timestamps.npy"))
+    np.testing.assert_array_equal(key_ts, np.arange(14))
+    gt = np.stack([ds[int(t)]["c2w"] for t in key_ts])
+    err = np.linalg.norm(key_poses[:, :3, 3] - gt[:, :3, 3], axis=-1)
+    assert err.max() < KEY_POSE_TOL_M, err
+    # the mapper's keyframe poses were refreshed from the tracker
+    kf = slam.map_state.kf_poses[:13].numpy()
+    np.testing.assert_allclose(kf[:, :3, 3], key_poses[:13, :3, 3],
+                               atol=1e-4)
+    assert all(np.isfinite(v) for m in slam.metrics_log for v in m.values())
+    assert os.path.exists(res["checkpoint"])
+
+
+def test_loop_ba_and_global_ba_raise_when_they_would_run(tmp_path):
+    slam, _ = _slam(tmp_path / "a", num_frames=8,
+                    frontend={"enable_loop": True, "window": 5})
+    with pytest.raises(NotImplementedError, match="loop BA"):
+        slam.run_slam()
+    assert slam.tracker.frontend.t1 == 6         # first keyframe past 5
+    slam, _ = _slam(tmp_path / "b", num_frames=8, frontend={"window": 5})
+    slam.global_ba_every = 2
+    with pytest.raises(NotImplementedError, match="global BA"):
+        slam.run_slam()
+    assert slam.tracker.counter > 5
+
+
+def test_tracking_resize_matches_jax(tmp_path):
+    """_to_tracking_res / _depth_to_tracking_res against the JAX methods,
+    with and without an edge band."""
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(0)
+    rgb = rng.random((68, 120, 3)).astype(np.float32)
+    depth = (0.5 + rng.random((68, 120))).astype(np.float32)
+    for edge in (0, 2):
+        ov = _slam_overrides(tmp_path)
+        ov["cam"].update(H=68, W=120, H_out=32, W_out=64, H_edge=edge,
+                         W_edge=edge)
+        cfg = pconfig.make_config(ov)
+        port = SimpleNamespace(config=cfg, device=torch.device("cpu"))
+        jself = SimpleNamespace(config=jconfig.make_config(ov))
+        got = MNESLAM._to_tracking_res(port, rgb)
+        ref = np.asarray(JMNESLAM._to_tracking_res(jself, rgb))
+        assert got.shape == (3, 32, 64)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-6)
+        np.testing.assert_array_equal(
+            MNESLAM._depth_to_tracking_res(port, depth).numpy(),
+            np.asarray(JMNESLAM._depth_to_tracking_res(jself, depth)))
+
+
+def test_tracking_intrinsics_and_precision(tmp_path):
+    """The edge-aware rescale of slam.py:141-153: focal lengths scale with
+    the padded size, the principal point shifts by the crop; stored at
+    1/8. No tracking.precision on the CPU: fp32 nets and buffers."""
+    ov = _slam_overrides(tmp_path)
+    ov["cam"].update(H_out=48, W_out=64, H_edge=4, W_edge=8)
+    cfg = pconfig.make_config(ov)
+    slam = MNESLAM(cfg, SyntheticBoxDataset(cfg, num_frames=2), device="cpu")
+    sx, sy = (64 + 16) / 96, (48 + 8) / 64
+    ref = np.array([60 * sx, 60 * sy, 47.5 * sx - 8, 31.5 * sy - 4]) / 8
+    np.testing.assert_allclose(slam.tracker.intrinsics.numpy(), ref,
+                               rtol=1e-6)
+    assert slam.tracker.state.fmaps.dtype == torch.float32
+    assert slam.tracker.frontend.graph.net.dtype == torch.float32
+    assert slam.tracker.ht == 6 and slam.tracker.wd == 8
+
+
+def test_cli_slam_run_on_cpu(tmp_path):
+    import yaml
+
+    ov = _slam_overrides(tmp_path)
+    ov["dataset"] = "synthetic"
+    ov["data"]["num_frames"] = 6
+    path = tmp_path / "tiny.yaml"
+    path.write_text(yaml.safe_dump(ov))
+    res = cli.main(["--config", str(path), "--mode", "slam",
+                    "--output", str(tmp_path / "out"), "--device", "cpu"])
+    # random DROID weights, every frame admitted: the frontend initialises
+    # at warmup 5 and tracks frame 6
+    assert res["tracked_keyframes"] == 6
+    assert res["checkpoint"].startswith(str(tmp_path / "out"))
+    poses = np.load(os.path.join(os.path.dirname(res["checkpoint"]),
+                                 "key_est_poses.npy"))
+    assert poses.shape == (6, 4, 4) and np.isfinite(poses).all()
