@@ -4,9 +4,10 @@
         [--mode slam|mapping] [--output OUT] [--device cuda|cpu]
 
 Runs on the GPU by default and raises when there is none, unless
-`--device cpu` is given. `--mode` overrides the config's `mode`. Port of
-the single-agent paths of `mneslam_tpu/cli.py`; the multi-agent runner is
-not ported yet.
+`--device cpu` is given. `--mode` overrides the config's `mode`. A SLAM run
+prints its APE (Sim(3)) line at the end and returns it in the result's
+"ate". Port of the single-agent paths of `mneslam_tpu/cli.py`; the
+multi-agent runner is not ported yet.
 """
 
 from __future__ import annotations

@@ -22,7 +22,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-KERNEL_SOURCES = ("scatter_add_rows", "corr_window")
+KERNEL_SOURCES = ("scatter_add_rows", "corr_window", "corr_window_mma")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

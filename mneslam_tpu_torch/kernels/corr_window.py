@@ -1,11 +1,12 @@
 """Integer-offset correlation windows over a padded feature pyramid.
 
 Port of the Pallas kernels `corr_window_int_multilevel` (all pyramid
-levels in one launch) and `corr_window_int` (one level) of
-mneslam_tpu/ops/pallas_kernels.py. On CUDA tensors both wrappers launch
-the hand-written kernel in `csrc/corr_window.cu` (or raise); on CPU tensors
-they run the plain PyTorch versions below. There is no size gate and no
-fallback.
+levels in one launch; its `mxu=True` variant) and `corr_window_int` (one
+level) of mneslam_tpu/ops/pallas_kernels.py. On CUDA tensors the wrappers
+launch the hand-written kernels in `csrc/corr_window.cu` (kernels 2 and 3)
+and `csrc/corr_window_mma.cu` (kernel 2b, tensor cores) or raise; on CPU
+tensors they run the plain PyTorch versions below. There is no size gate
+and no fallback.
 
 Contract, the same on both paths. f1_rows [N, HW, C] float32 (level 0,
 already scaled by 1/4); each f2 level [N, R_l, C] float32, the zero-padded
@@ -14,8 +15,8 @@ slab starts ([E, HW, L] for the multi-level entry, [E, HW] for the
 per-level one); mask [E] int32 or None (all edges real). The output is
 float32, j-major: out[e, p, l, j * 8 + i] = f1_rows[ii[e], p] .
 f2_l[jj[e], xs[e, p, l] + j * w2p_l + i], and all zeros for an edge with
-mask[e] == 0. The window is 8 x 8 (radius 3); the kernel takes C a
-multiple of 32.
+mask[e] == 0. The window is 8 x 8 (radius 3); kernel 2 takes C a
+multiple of 32, kernel 2b C of 32, 64 or 128.
 """
 
 from __future__ import annotations
@@ -65,6 +66,45 @@ def corr_window_multilevel_plain(f1_rows: torch.Tensor,
     return out
 
 
+def corr_window_multilevel_mma_plain(f1_rows: torch.Tensor,
+                                     f2_levels: Sequence[torch.Tensor],
+                                     ii: torch.Tensor, jj: torch.Tensor,
+                                     xs: torch.Tensor, w2ps: Sequence[int],
+                                     mask: Optional[torch.Tensor] = None
+                                     ) -> torch.Tensor:
+    """The plain version of kernel 2b, in the TPU kernel's block form: per
+    block of U pixels (the largest of 16, 8, 4, 2, 1 dividing HW) and
+    level, the pixels' window rows S [U * 64, C] times the block's f1
+    [C, U] in one batched fp32 product, then each pixel's own column (the
+    diagonal); a chunk of edges at a time."""
+    E, HW = xs.shape[:2]
+    L = len(f2_levels)
+    U = next(u for u in (16, 8, 4, 2, 1) if HW % u == 0)
+    C = f1_rows.shape[2]
+    out = torch.zeros((E, HW, L, NX * NX), dtype=torch.float32,
+                      device=f1_rows.device)
+    ii, jj = ii.long(), jj.long()
+    chunk = max(1, _VOLUME_BYTES // max(HW * NX * NX * C * 4, 1))
+    for lvl, (f2, w2p) in enumerate(zip(f2_levels, w2ps)):
+        offs = _offsets(w2p, f1_rows.device)
+        for e0 in range(0, E, chunk):
+            sl = slice(e0, min(e0 + chunk, E))
+            c = sl.stop - e0
+            rows = xs[sl, :, lvl].long()[..., None] + offs      # [c, HW, 64]
+            S = f2[jj[sl][:, None], rows.reshape(c, -1)]        # [c, HW*64, C]
+            S = S.reshape(c, HW // U, U * NX * NX, C)
+            f1b = f1_rows[ii[sl]].reshape(c, HW // U, U, C)
+            dots = S @ f1b.transpose(-1, -2)                    # [.., U*64, U]
+            d = dots.reshape(c, HW // U, U, NX * NX, U)
+            diag = torch.diagonal(d, dim1=2, dim2=4)            # [.., 64, U]
+            out[sl, :, lvl] = diag.permute(0, 1, 3, 2).reshape(c, HW,
+                                                               NX * NX)
+    if mask is not None:
+        out = torch.where((mask != 0)[:, None, None, None], out,
+                          torch.zeros_like(out))
+    return out
+
+
 def corr_window_plain(f1_rows: torch.Tensor, f2_rows_pad: torch.Tensor,
                       ii: torch.Tensor, jj: torch.Tensor, xs: torch.Tensor,
                       w2p: int) -> torch.Tensor:
@@ -73,7 +113,7 @@ def corr_window_plain(f1_rows: torch.Tensor, f2_rows_pad: torch.Tensor,
                                         xs[..., None], [w2p])[:, :, 0]
 
 
-def _check(f1_rows, f2_levels, ii, jj, xs, w2ps, mask):
+def _check(f1_rows, f2_levels, ii, jj, xs, w2ps, mask, mma=False):
     dev = f1_rows.device
     if f1_rows.dim() != 3:
         raise ValueError(f"f1_rows must be [N, HW, C], got "
@@ -83,6 +123,8 @@ def _check(f1_rows, f2_levels, ii, jj, xs, w2ps, mask):
     if not 1 <= L <= 4 or len(w2ps) != L:
         raise ValueError(f"expected 1-4 levels with one width each, got "
                          f"{L} levels and {len(w2ps)} widths")
+    if dev.type == "cuda" and mma and C not in (32, 64, 128):
+        raise ValueError(f"C must be 32, 64 or 128, got {C}")
     if dev.type == "cuda" and C % 32 != 0:
         raise ValueError(f"C must be a multiple of 32, got {C}")
     E = ii.shape[0]
@@ -114,11 +156,13 @@ def _check(f1_rows, f2_levels, ii, jj, xs, w2ps, mask):
                              f"padded image of width {w2p}")
 
 
-def _launch_cuda(f1_rows, f2_levels, ii, jj, xs, w2ps, mask):
+def _launch_cuda(f1_rows, f2_levels, ii, jj, xs, w2ps, mask,
+                 source="corr_window"):
+    """Launch the C entry `source` of `csrc/<source>.cu` (both kernels take
+    the same arguments)."""
     from . import build
 
-    lib = build.load("corr_window")
-    fn = lib.corr_window
+    fn = getattr(build.load(source), source)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -141,7 +185,7 @@ def _launch_cuda(f1_rows, f2_levels, ii, jj, xs, w2ps, mask):
                  jj.data_ptr(), mask.data_ptr(), xs.data_ptr(),
                  out.data_ptr(), E, HW, C, L, stream)
     if err != 0:
-        raise RuntimeError(f"corr_window kernel launch failed: "
+        raise RuntimeError(f"{source} kernel launch failed: "
                            f"cudaError {err}")
     return out
 
@@ -166,6 +210,29 @@ def corr_window_multilevel(f1_rows: torch.Tensor,
     raise ValueError(f"unsupported device {f1_rows.device}")
 
 
+def corr_window_multilevel_mma(f1_rows: torch.Tensor,
+                               f2_levels: Sequence[torch.Tensor],
+                               ii: torch.Tensor, jj: torch.Tensor,
+                               xs: torch.Tensor, w2ps: Sequence[int],
+                               mask: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """All levels in one launch on the tensor cores -> [E, HW, L, 64] (TPU
+    kernel 2b, `mxu=True`): the same contract as `corr_window_multilevel`.
+    The CUDA kernel for CUDA tensors, the plain block version for CPU
+    tensors. `corr_window_multilevel_mma.launches` counts kernel
+    launches."""
+    _check(f1_rows, f2_levels, ii, jj, xs, w2ps, mask, mma=True)
+    if f1_rows.device.type == "cuda":
+        out = _launch_cuda(f1_rows, f2_levels, ii, jj, xs, w2ps, mask,
+                           source="corr_window_mma")
+        corr_window_multilevel_mma.launches += 1
+        return out
+    if f1_rows.device.type == "cpu":
+        return corr_window_multilevel_mma_plain(f1_rows, f2_levels, ii, jj,
+                                                xs, w2ps, mask)
+    raise ValueError(f"unsupported device {f1_rows.device}")
+
+
 def corr_window(f1_rows: torch.Tensor, f2_rows_pad: torch.Tensor,
                 ii: torch.Tensor, jj: torch.Tensor, xs: torch.Tensor,
                 w2p: int) -> torch.Tensor:
@@ -184,4 +251,5 @@ def corr_window(f1_rows: torch.Tensor, f2_rows_pad: torch.Tensor,
 
 
 corr_window_multilevel.launches = 0
+corr_window_multilevel_mma.launches = 0
 corr_window.launches = 0

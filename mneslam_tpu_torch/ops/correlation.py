@@ -8,12 +8,18 @@ sampler's: window channels laid out [x_offset, y_offset] (x slower),
 levels concatenated (4 * 49 = 196 channels), corners outside the volume
 contribute zero, features pre-scaled by 1/4 on each side.
 
-`alt_corr` is the path the tracker takes: the integer 8 x 8 window dots
-of every level come from one `kernels.corr_window.corr_window_multilevel`
-call (the CUDA kernel on a GPU tensor, its plain version on a CPU tensor);
-the bilinear combine of the scalar field is plain torch. `alt_corr_per_level`
-runs the per-level entry (TPU kernel 3) instead; `alt_corr_plain` is the
-slab-gather formulation (the JAX `alt_corr_xla`).
+`alt_corr` is the path the tracker takes. It reads `MNESLAM_CORR_IMPL` on
+every call, as the JAX package does (no value is chosen by device):
+- unset or `pallas`: the integer 8 x 8 window dots of every level come
+  from one `kernels.corr_window.corr_window_multilevel` call (TPU kernel
+  2: the CUDA kernel on a GPU tensor, its plain version on a CPU tensor);
+  the bilinear combine of the scalar field is plain torch;
+- `pallas_mxu`: the same with `corr_window_multilevel_mma` (TPU kernel
+  2b, the tensor-core kernel);
+- `pallas_per_level`: `alt_corr_per_level`, one `corr_window` call per
+  level (TPU kernel 3), the mask applied afterwards;
+- `xla`: `alt_corr_plain`, the slab-gather formulation (the JAX
+  `alt_corr_xla`), the mask applied afterwards.
 
 One difference from the JAX `alt_corr_pallas_ml` / `alt_corr_pallas`: a
 lookup centre more than r + 1 pixels outside a level has its slab start
@@ -24,13 +30,27 @@ as in the reference sampler, `alt_corr_xla` and `alt_corr_plain`.
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
 
-from ..kernels.corr_window import corr_window, corr_window_multilevel
+from ..kernels.corr_window import (corr_window, corr_window_multilevel,
+                                   corr_window_multilevel_mma)
 from .projective import coords_grid
+
+CORR_IMPLS = ("pallas", "pallas_mxu", "pallas_per_level", "xla")
+
+
+def corr_impl() -> str:
+    """The `MNESLAM_CORR_IMPL` selection (default `pallas`); raises on a
+    value the JAX package does not know."""
+    impl = os.environ.get("MNESLAM_CORR_IMPL", "pallas")
+    if impl not in CORR_IMPLS:
+        raise ValueError(f"MNESLAM_CORR_IMPL={impl!r}: expected one of "
+                         f"{CORR_IMPLS}")
+    return impl
 
 
 def build_pyramid(fmaps: torch.Tensor, num_levels: int = 4
@@ -97,12 +117,34 @@ def _bilinear(ci: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor,
 def alt_corr(fmaps: torch.Tensor, ii: torch.Tensor, jj: torch.Tensor,
              coords: torch.Tensor, radius: int = 3,
              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Correlation features for an edge set -> [E, L*(2r+1)^2, H, W].
+    """Correlation features for an edge set -> [E, L*(2r+1)^2, H, W],
+    through the `MNESLAM_CORR_IMPL` selection (module docstring).
 
     fmaps [N, C, H, W] (unscaled), ii / jj [E], coords [E, H, W, 2] lookup
-    centres in level-0 pixels, mask [E] (0 = padded edge: all-zero output).
-    The port of `alt_corr_pallas_ml`: the pyramid and its padded copies
-    are rebuilt for the whole buffer on every call, as in the JAX package."""
+    centres in level-0 pixels, mask [E] (0 = padded edge: all-zero
+    output)."""
+    impl = corr_impl()
+    if impl in ("pallas", "pallas_mxu"):
+        return alt_corr_multilevel(fmaps, ii, jj, coords, radius=radius,
+                                   mask=mask, mxu=impl == "pallas_mxu")
+    if impl == "pallas_per_level":
+        out = alt_corr_per_level(fmaps, ii, jj, coords, radius=radius)
+    else:
+        out = alt_corr_plain(fmaps, ii, jj, coords, radius=radius)
+    if mask is not None:
+        out = out * mask.to(out.dtype)[:, None, None, None]
+    return out
+
+
+def alt_corr_multilevel(fmaps: torch.Tensor, ii: torch.Tensor,
+                        jj: torch.Tensor, coords: torch.Tensor,
+                        radius: int = 3,
+                        mask: Optional[torch.Tensor] = None,
+                        mxu: bool = False) -> torch.Tensor:
+    """The port of `alt_corr_pallas_ml`: all levels' window dots in one
+    kernel call (kernel 2, or kernel 2b with `mxu`). The pyramid and its
+    padded copies are rebuilt for the whole buffer on every call, as in
+    the JAX package."""
     pyr = build_pyramid(fmaps)
     N, C, H, W = pyr[0].shape
     HW = H * W
@@ -112,7 +154,8 @@ def alt_corr(fmaps: torch.Tensor, ii: torch.Tensor, jj: torch.Tensor,
     f1_rows = pyr[0].permute(0, 2, 3, 1).reshape(N, HW, C).contiguous()
     f2_levels, w2ps, xs, fracs = _padded_levels(pyr, coords, radius)
     m = None if mask is None else mask.to(torch.int32).contiguous()
-    corr_int = corr_window_multilevel(
+    window = corr_window_multilevel_mma if mxu else corr_window_multilevel
+    corr_int = window(
         f1_rows, f2_levels, ii.to(torch.int32).contiguous(),
         jj.to(torch.int32).contiguous(), xs, w2ps, mask=m,
     ).reshape(E, HW, len(pyr), nx, nx)

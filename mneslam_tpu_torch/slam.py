@@ -14,16 +14,20 @@ Port of the single-agent paths of `mneslam_tpu/slam.py`.
 Per-keyframe metrics stay on the device and are read back one keyframe
 late, so the read overlaps the next keyframe's steps.
 
+Every `mapping.global_ba_every` keyframes past `tracking.frontend.window`
+the tracker runs a global BA over its history (the reference's
+BundleAdjustment thread).
+
 Outputs under `<data.output>/<data.exp_name>/agent_<rank>/`:
 `metrics.jsonl` (one line per mapped keyframe) and, at `terminate`,
 `final_checkpoint.npz` with the JAX package's key names, plus in SLAM mode
-`key_est_poses.npy` and `key_timestamps.npy`.
+`key_est_poses.npy`, `key_timestamps.npy`, `est_poses.npy` (every frame,
+from the trajectory filler) and `metrics_traj.txt` (APE after a Sim(3)
+alignment to the dataset's poses).
 
-Not ported yet (ROADMAP.md): the backend (the frontend's loop BA and the
-periodic global BA raise when they would run, i.e. past
-`tracking.frontend.window` keyframes), the trajectory filler, ATE and
-`est_poses.npy`, mesh extraction at terminate, the render panels
-(`mapping.vis`), periodic mesh snapshots and the multi-agent hooks.
+Not ported yet (ROADMAP.md): mesh extraction at terminate, the render
+panels (`mapping.vis`), periodic mesh snapshots, the full-state
+checkpoints (`--resume`) and the multi-agent hooks.
 """
 
 from __future__ import annotations
@@ -37,11 +41,14 @@ import torch
 import torch.nn.functional as F
 
 from .device import make_generator, resolve_device
+from .eval import ate as ate_lib
 from .mapping.mapper import Mapper
 from .models import droid_net
 from .models.scene_rep import SceneRep, param_items
+from .ops import lie
 from .tracking import video as video_lib
 from .tracking.tracker import Tracker
+from .tracking.trajectory_filler import PoseTrajectoryFiller
 from .utils.metrics import StageTimers
 
 
@@ -108,10 +115,17 @@ class MNESLAM:
         self._metrics_flushed = 0  # log entries converted to host floats
 
         self.tracker = None
+        self.traj_filler = None
         if self.mode == "slam":
-            self.tracker = Tracker(config, self._droid_params(droid_params),
+            params = self._droid_params(droid_params)
+            self.tracker = Tracker(config, params,
                                    self._tracking_intrinsics(), self.device,
                                    update_fn=update_fn, agg_fn=agg_fn)
+            # the filler keeps the given weights' fp32 (the tracker casts
+            # its own copy), as the JAX package's filler does
+            self.traj_filler = PoseTrajectoryFiller(
+                params, self.tracker.intrinsics, update_fn=update_fn,
+                agg_fn=agg_fn)
         self.map_counter = 0
         self.global_ba_every = int(config["mapping"].get("global_ba_every",
                                                          10))
@@ -322,7 +336,7 @@ class MNESLAM:
 
     def maybe_global_ba(self):
         """The periodic global BA (the reference's BundleAdjustment
-        thread); it raises, not ported yet, when it would run."""
+        thread)."""
         if self.tracker is None:
             return
         if (self.tracker.counter - self._last_global_ba
@@ -365,8 +379,10 @@ class MNESLAM:
 
     def terminate(self):
         """Flush the metric log and write final_checkpoint.npz; in SLAM
-        mode also key_est_poses.npy (GT-aligned c2w) and
-        key_timestamps.npy."""
+        mode also key_est_poses.npy (GT-aligned c2w), key_timestamps.npy,
+        and from the trajectory filler over every frame est_poses.npy with
+        its APE (Sim(3), `results["ate"]`) in metrics_traj.txt
+        (slam.py:603-635 of the JAX package)."""
         self._flush_metrics()
         results = {"keyframes": len(self.mapped_timestamps)}
         if self.tracker is not None and self.tracker.counter > 1:
@@ -379,6 +395,32 @@ class MNESLAM:
             np.save(os.path.join(self.out_dir, "key_timestamps.npy"),
                     self.tracker.keyframe_timestamps())
             results["tracked_keyframes"] = n
+
+            # a pose for every frame, at the tracking resolution
+            def stream():
+                for idx in range(len(self.dataset)):
+                    yield float(idx), self._to_tracking_res(
+                        self.dataset[idx]["rgb"])
+
+            with self.timers.stage("fill_trajectory"):
+                filled_w2c = self.traj_filler(st, n, stream())
+                # GT-aligned c2w: the first GT pose with the axis flips,
+                # composed in fp32
+                M = lie.matrix(lie.inv(filled_w2c))
+                trans = st.poses_gt[0].clone()
+                trans[:3, 1:3] = -trans[:3, 1:3]
+                M = torch.einsum("ij,njk->nik", trans, M)
+                M[:, :3, 1:3] = -M[:, :3, 1:3]
+                est_poses = M.cpu().numpy()
+            np.save(os.path.join(self.out_dir, "est_poses.npy"), est_poses)
+            gt = np.stack([self.dataset[i]["c2w"]
+                           for i in range(len(self.dataset))])
+            metrics = ate_lib.evaluate_ate(gt, est_poses, alignment="sim3")
+            ate_lib.save_trajectory_metrics(
+                os.path.join(self.out_dir, "metrics_traj.txt"), metrics)
+            results["ate"] = metrics
+            print(f"[agent {self.rank}] APE(sim3) rmse="
+                  f"{metrics['rmse']:.4f} m")
         path = os.path.join(self.out_dir, "final_checkpoint.npz")
         self.save_checkpoint(path)
         self.timers.close()

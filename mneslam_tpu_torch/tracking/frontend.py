@@ -4,9 +4,9 @@ Port of `mneslam_tpu/tracking/frontend.py`: at `warmup` keyframes the graph
 is seeded with neighbourhood and proximity factors and iterated 8 + 8
 times; afterwards each new keyframe brings age-based eviction, proximity
 factors, 4 GRU/BA updates, a redundancy test that may drop the previous
-keyframe, and 2 more updates. The loop-BA branch (once the keyframe count
-passes the frontend window with `enable_loop`) needs the backend, which is
-not ported yet: it raises instead of being skipped.
+keyframe, and then either 2 more updates or, with `enable_loop` once the
+keyframe count passes the frontend window, a loop BA over the whole
+history (`Backend.loop_ba`, seeded with the frontend's edges).
 """
 
 from __future__ import annotations
@@ -17,14 +17,10 @@ import torch
 from . import video as video_lib
 from .graph import FactorGraph
 
-LOOP_BA_TODO = ("the frontend's loop BA (Backend.loop_ba) is not ported yet "
-                "(ROADMAP.md Queue 1 item 6); runs with tracking.frontend."
-                "enable_loop stop at frontend.window keyframes")
-
 
 class Frontend:
     def __init__(self, params, intrinsics, config, buffer: int, ht: int,
-                 wd: int, update_fn=None, agg_fn=None):
+                 wd: int, update_fn=None, agg_fn=None, backend=None):
         fe = config["tracking"]["frontend"]
         self.warmup = config["tracking"]["warmup"]
         self.beta = config["tracking"]["beta"]
@@ -35,6 +31,7 @@ class Frontend:
         self.frontend_nms = fe["nms"]
         self.max_factors = fe["max_factors"]
         self.enable_loop = fe.get("enable_loop", False)
+        self.backend = backend
 
         window_cap = int(2 ** np.ceil(np.log2(max(self.frontend_window + 8,
                                                   16))))
@@ -49,6 +46,7 @@ class Frontend:
         self.max_age = 25
         self.iters1 = 4
         self.iters2 = 2
+        self.last_loop_t = -1
         self.removed_count = 0  # keyframes culled (frontend.py:77-83)
 
     def _initialize(self, state: video_lib.VideoState, counter: int):
@@ -97,9 +95,13 @@ class Frontend:
             counter -= 1
             self.t1 -= 1
             self.removed_count += 1
+        elif (self.enable_loop and self.backend is not None
+              and counter > self.frontend_window):
+            state, _, _ = self.backend.loop_ba(
+                state, counter, t_start=0, t_end=counter, steps=self.iters2,
+                local_graph=self.graph)
+            self.last_loop_t = counter
         else:
-            if self.enable_loop and counter > self.frontend_window:
-                raise NotImplementedError(LOOP_BA_TODO)
             for _ in range(self.iters2):
                 state = self.graph.update(state, use_inactive=True)
 

@@ -1,12 +1,18 @@
 """Factor graph: a host-managed edge table and the per-update device step.
 
-Port of `mneslam_tpu/tracking/graph.py` (the frontend's dense path). Edge
-bookkeeping (dedup, age-based eviction, NMS proximity selection, keyframe
-index remapping) is O(window^2) host work in numpy; everything per pixel
-(reprojection, correlation lookup, ConvGRU, damping aggregation, the
-windowed dense BA) runs in `update_step` over a fixed-capacity padded edge
-table, with no host readback. The memory-bounded chunked update and the
-sparse-Schur full-history BA belong to the backend and are not ported yet.
+Port of `mneslam_tpu/tracking/graph.py`. Edge bookkeeping (dedup, age-based
+eviction, NMS proximity selection, keyframe index remapping) is
+O(window^2) host work in numpy; everything per pixel (reprojection,
+correlation lookup, ConvGRU, damping aggregation, the dense BA) runs over a
+fixed-capacity padded edge table, with no host readback:
+
+- `update_step`: the GRU half (`gru_chunk_step`) over the whole table,
+  then the BA half (`ba_step`): the windowed dense BA, or with Schur pairs
+  the full-buffer sparse-Schur BA;
+- `update_chunked_step`: the memory-bounded update of long graphs (the
+  reference's `update_lowmem`): the GRU half one chunk of edges at a time,
+  a host loop that writes each chunk's hidden state, target and weight
+  into the tables in place, then one BA half over all edges.
 """
 
 from __future__ import annotations
@@ -17,12 +23,8 @@ import numpy as np
 import torch
 
 from ..models import droid_net
-from ..ops import correlation, projective
+from ..ops import ba_sparse, correlation, projective
 from . import video as video_lib
-
-_BACKEND_TODO = ("is not ported yet (ROADMAP.md Queue 1 item 6, global BA "
-                 "at ScanNet scale: backend.py, ba_sparse.py, "
-                 "update_chunked_step)")
 
 
 def _add_factors_step(state: video_lib.VideoState, intrinsics: torch.Tensor,
@@ -44,21 +46,16 @@ def _add_factors_step(state: video_lib.VideoState, intrinsics: torch.Tensor,
     return net_buf, target_buf, weight_buf
 
 
-def update_step(state: video_lib.VideoState, params: Dict,
-                intrinsics: torch.Tensor, ii: torch.Tensor, jj: torch.Tensor,
-                mask: torch.Tensor, net: torch.Tensor, target: torch.Tensor,
-                ii_inac: torch.Tensor, jj_inac: torch.Tensor,
-                mask_inac: torch.Tensor, target_inac: torch.Tensor,
-                weight_inac: torch.Tensor, t0: int, t1: int, window: int,
-                iters: int = 2, motion_only: bool = False, lm: float = 1e-4,
-                ep: float = 0.1, update_fn=None, agg_fn=None):
-    """One tracker update (factor_graph.py:224-277): reproject -> correlate
-    -> ConvGRU -> new targets / weights / damping -> windowed dense BA.
-
-    ii / jj / mask [cap] (padded), net [cap, 128, h, w], target
-    [cap, h, w, 2], the inactive edges likewise; t0 / t1 host ints.
-    `update_fn` / `agg_fn` replace the DROID heads (the oracle tests).
-    Returns (state, net, target, weight, upmask)."""
+def gru_chunk_step(state: video_lib.VideoState, params: Dict,
+                   intrinsics: torch.Tensor, ii: torch.Tensor,
+                   jj: torch.Tensor, mask: torch.Tensor, net: torch.Tensor,
+                   target: torch.Tensor, update_fn=None, agg_fn=None):
+    """The correlate -> ConvGRU half of an update over one set of edges
+    (factor_graph.py:224-277 / 280-346): reproject, correlation lookup,
+    ConvGRU, new targets and weights, and the per-frame damping scattered
+    into the state. ii / jj / mask [n] (padded), net [n, 128, h, w], target
+    [n, h, w, 2]. `update_fn` / `agg_fn` replace the DROID heads (the
+    oracle tests). Returns (state, net, target, weight, upmask)."""
     B = state.poses.shape[0]
     ht, wd = state.disps.shape[1:]
     coords0 = projective.coords_grid(ht, wd, device=state.poses.device)
@@ -81,38 +78,117 @@ def update_step(state: video_lib.VideoState, params: Dict,
     else:
         eta, upmask = agg_fn(params, new_net, ii, mask, B)
 
-    new_target = coords1 + delta
     # per-frame damping; padded edges write to a trash row B. Edges of one
     # frame carry equal eta, so whichever duplicate lands is right.
     ii_scatter = torch.where(mask > 0, ii, torch.full_like(ii, B))
     damping = torch.cat([state.damping, state.damping.new_zeros((1, ht, wd))])
     damping[ii_scatter] = eta.to(damping.dtype)
     state = state._replace(damping=damping[:B])
+    return state, new_net, coords1 + delta, weight, upmask
 
-    state = video_lib.windowed_ba(
-        state, intrinsics,
-        torch.cat([new_target, target_inac]), torch.cat([weight, weight_inac]),
-        torch.cat([ii, ii_inac]), torch.cat([jj, jj_inac]),
-        torch.cat([mask, mask_inac]),
-        t0=t0, t1=t1, window=window, iters=iters, lm=lm, ep=ep,
-        motion_only=motion_only)
+
+def ba_step(state: video_lib.VideoState, intrinsics: torch.Tensor,
+            ii: torch.Tensor, jj: torch.Tensor, mask: torch.Tensor,
+            target: torch.Tensor, weight: torch.Tensor, t0: int, t1: int,
+            window: int, iters: int = 2, motion_only: bool = False,
+            lm: float = 1e-4, ep: float = 0.1,
+            pairs: Optional[ba_sparse.SchurPairs] = None):
+    """The BA half over the GRU-updated edge table: the full-buffer
+    sparse-Schur BA when `pairs` are given, else the windowed dense BA."""
+    if pairs is not None:
+        return video_lib.full_ba(state, intrinsics, target, weight, ii, jj,
+                                 mask, pairs, t0=t0, t1=t1, iters=iters,
+                                 lm=lm, ep=ep, motion_only=motion_only)
+    return video_lib.windowed_ba(state, intrinsics, target, weight, ii, jj,
+                                 mask, t0=t0, t1=t1, window=window,
+                                 iters=iters, lm=lm, ep=ep,
+                                 motion_only=motion_only)
+
+
+def update_step(state: video_lib.VideoState, params: Dict,
+                intrinsics: torch.Tensor, ii: torch.Tensor, jj: torch.Tensor,
+                mask: torch.Tensor, net: torch.Tensor, target: torch.Tensor,
+                ii_inac: torch.Tensor, jj_inac: torch.Tensor,
+                mask_inac: torch.Tensor, target_inac: torch.Tensor,
+                weight_inac: torch.Tensor, t0: int, t1: int, window: int,
+                iters: int = 2, motion_only: bool = False, lm: float = 1e-4,
+                ep: float = 0.1, update_fn=None, agg_fn=None, pairs=None):
+    """One tracker update (factor_graph.py:224-277): reproject -> correlate
+    -> ConvGRU -> new targets / weights / damping -> dense BA over the
+    active and the given inactive edges.
+
+    ii / jj / mask [cap] (padded), net [cap, 128, h, w], target
+    [cap, h, w, 2], the inactive edges likewise; t0 / t1 host ints.
+    Returns (state, net, target, weight, upmask)."""
+    state, new_net, new_target, weight, upmask = gru_chunk_step(
+        state, params, intrinsics, ii, jj, mask, net, target,
+        update_fn=update_fn, agg_fn=agg_fn)
+    state = ba_step(
+        state, intrinsics, torch.cat([ii, ii_inac]), torch.cat([jj, jj_inac]),
+        torch.cat([mask, mask_inac]), torch.cat([new_target, target_inac]),
+        torch.cat([weight, weight_inac]), t0=t0, t1=t1, window=window,
+        iters=iters, motion_only=motion_only, lm=lm, ep=ep, pairs=pairs)
     return state, new_net, new_target, weight, upmask
 
 
+def update_chunked_step(state: video_lib.VideoState, params: Dict,
+                        intrinsics: torch.Tensor, ii: torch.Tensor,
+                        jj: torch.Tensor, mask: torch.Tensor,
+                        net: torch.Tensor, target: torch.Tensor,
+                        ii_inac: torch.Tensor, jj_inac: torch.Tensor,
+                        mask_inac: torch.Tensor, target_inac: torch.Tensor,
+                        weight_inac: torch.Tensor, t0: int, t1: int,
+                        n_chunks: int, window: int, chunk: int,
+                        iters: int = 2, motion_only: bool = False,
+                        lm: float = 1e-4, ep: float = 0.1, update_fn=None,
+                        agg_fn=None, pairs=None):
+    """The memory-bounded update (the reference's `update_lowmem`,
+    factor_graph.py:280-346): the GRU half over `n_chunks` chunks of
+    `chunk` edges (the correlation volume and GRU activations exist only
+    at chunk size), then one BA half over the whole table. The damping
+    carries from chunk to chunk. `net` and `target` [cap] (cap a multiple
+    of `chunk`) are updated in place, slice by slice: each chunk's outputs
+    are new tensors computed before its slice is written. Chunks past
+    `n_chunks` keep their net / target and get zero weight. Returns (state,
+    net, target, weight, upmask) with chunk 0's upsample mask (the JAX
+    function's choice)."""
+    weight = torch.zeros_like(target)
+    upmask = None
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        state, net_c, tgt_c, w_c, up_c = gru_chunk_step(
+            state, params, intrinsics, ii[sl], jj[sl], mask[sl], net[sl],
+            target[sl], update_fn=update_fn, agg_fn=agg_fn)
+        net[sl] = net_c
+        target[sl] = tgt_c
+        weight[sl] = w_c
+        if c == 0:
+            upmask = up_c
+    state = ba_step(
+        state, intrinsics, torch.cat([ii, ii_inac]), torch.cat([jj, jj_inac]),
+        torch.cat([mask, mask_inac]), torch.cat([target, target_inac]),
+        torch.cat([weight, weight_inac]), t0=t0, t1=t1, window=window,
+        iters=iters, motion_only=motion_only, lm=lm, ep=ep, pairs=pairs)
+    return state, net, target, weight, upmask
+
+
 class FactorGraph:
-    """Host wrapper owning the padded edge table."""
+    """Host wrapper owning the padded edge table.
+
+    `sparse_ba`: BA over the whole buffer with the sparse Schur assembly
+    (backend graphs that span more history than the dense window holds).
+    `corr_chunk`: run the GRU half in chunks of that many edges once the
+    capacity (rounded up to a multiple of it) exceeds one chunk."""
 
     def __init__(self, buffer: int, ht: int, wd: int, capacity: int,
                  params: Dict, intrinsics: torch.Tensor, window: int = 32,
                  max_factors: int = -1, inac_capacity: Optional[int] = None,
                  update_fn=None, agg_fn=None, sparse_ba: bool = False,
                  corr_chunk: Optional[int] = None):
-        if sparse_ba:
-            raise NotImplementedError("sparse_ba (full-history sparse-Schur "
-                                      "BA) " + _BACKEND_TODO)
+        self.sparse_ba = sparse_ba
+        self.corr_chunk = corr_chunk
         if corr_chunk is not None:
-            raise NotImplementedError("corr_chunk (the chunked update) "
-                                      + _BACKEND_TODO)
+            capacity = (capacity + corr_chunk - 1) // corr_chunk * corr_chunk
         self.update_fn = update_fn
         self.agg_fn = agg_fn
         self.buffer = buffer
@@ -146,7 +222,19 @@ class FactorGraph:
         self.ii_bad = np.zeros(0, np.int64)
         self.jj_bad = np.zeros(0, np.int64)
         self._upmask = None
-        self.updates = 0  # update_step calls (one correlation lookup each)
+        # Schur-pair cache: the backend runs `update` several times over
+        # one edge set, and build_pairs is a host loop. Keyed on a version
+        # that every index mutation bumps (add_factors, rm_factors,
+        # rm_keyframe, Backend._copy_graph).
+        self._edges_version = 0
+        self._pairs_key = None
+        self._pairs = None
+        # which branches the updates took: correlation lookups (one per
+        # update, or one per chunk), sparse-Schur BAs, chunked updates
+        self.updates = 0
+        self.lookups = 0
+        self.sparse_updates = 0
+        self.chunked_updates = 0
 
     # ------------------------------------------------------------------
 
@@ -163,20 +251,26 @@ class FactorGraph:
             t = t.pin_memory()
         return t.to(self.device, non_blocking=True)
 
-    def _padded_indices(self) -> Tuple[torch.Tensor, torch.Tensor,
-                                       torch.Tensor]:
-        """The active edges padded to capacity: ii, jj (long), mask (fp32)."""
+    def _padded_indices_np(self) -> Tuple[np.ndarray, np.ndarray,
+                                          np.ndarray]:
+        """Host copies of the active edges padded to capacity: ii, jj
+        (int64), mask (fp32); `update` keeps them for the pair build."""
         ii = np.zeros(self.capacity, np.int64)
         jj = np.zeros(self.capacity, np.int64)
         m = np.zeros(self.capacity, np.float32)
         n = self.n_active
         ii[:n], jj[:n], m[:n] = self.ii, self.jj, 1.0
-        return self._to_dev(ii), self._to_dev(jj), self._to_dev(m)
+        return ii, jj, m
 
-    def _padded_inactive(self, t0: int):
+    def _padded_indices(self) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+        """The active edges padded to capacity on the device."""
+        return tuple(self._to_dev(a) for a in self._padded_indices_np())
+
+    def _padded_inactive_np(self, t0: int):
         """The retained inactive edges with both ends at or after t0 - 3,
-        padded to cap_inac, and their stored targets / weights gathered to
-        the front slots."""
+        padded to cap_inac, as host (ii, jj, mask), and their stored
+        targets / weights gathered to the front slots on the device."""
         ii = np.zeros(self.cap_inac, np.int64)
         jj = np.zeros(self.cap_inac, np.int64)
         m = np.zeros(self.cap_inac, np.float32)
@@ -190,8 +284,7 @@ class FactorGraph:
             gather[:k] = idx
             g = self._to_dev(gather)
             target, weight = target[g], weight[g]
-        return self._to_dev(ii), self._to_dev(jj), self._to_dev(m), \
-            target, weight
+        return ii, jj, m, target, weight
 
     # ------------------------------------------------------------------
 
@@ -226,6 +319,7 @@ class FactorGraph:
         self.ii = np.concatenate([self.ii, ii])
         self.jj = np.concatenate([self.jj, jj])
         self.age = np.concatenate([self.age, np.zeros(n_new, np.int64)])
+        self._edges_version += 1
 
     def rm_factors(self, mask: np.ndarray, store: bool = False):
         """Drop active edges; optionally archive them as inactive
@@ -233,6 +327,7 @@ class FactorGraph:
         mask = np.asarray(mask, bool)
         if mask.sum() == 0:
             return
+        self._edges_version += 1
         drop = np.nonzero(mask)[0]
         keep = np.nonzero(~mask)[0]
         if store:
@@ -263,6 +358,7 @@ class FactorGraph:
         """Remove keyframe ix: compact the buffer, remap edge indices
         (factor_graph.py:163-221)."""
         state = video_lib.remove_keyframe(state, ix)
+        self._edges_version += 1  # indices renumber even when none drop
         m = (self.ii_inac == ix) | (self.jj_inac == ix)
         self.ii_inac = np.where(self.ii_inac >= ix, self.ii_inac - 1,
                                 self.ii_inac)
@@ -300,20 +396,57 @@ class FactorGraph:
         if t1 is None:
             t1 = int(max(self.ii.max(), self.jj.max())) + 1
 
-        ii, jj, mask = self._padded_indices()
+        ii_np, jj_np, m_np = self._padded_indices_np()
+        ii, jj, mask = (self._to_dev(a) for a in (ii_np, jj_np, m_np))
+        dev = self.device
         if use_inactive:
-            ii_i, jj_i, m_i, tgt_i, w_i = self._padded_inactive(t0)
+            ii_i_np, jj_i_np, m_i_np, tgt_i, w_i = self._padded_inactive_np(t0)
+            ii_i, jj_i, m_i = (self._to_dev(a)
+                               for a in (ii_i_np, jj_i_np, m_i_np))
         else:
-            zeros = np.zeros(self.cap_inac, np.int64)
-            ii_i, jj_i = self._to_dev(zeros), self._to_dev(zeros)
-            m_i = self._to_dev(np.zeros(self.cap_inac, np.float32))
-            tgt_i, w_i = self.target_inac, self.weight_inac
+            # no inactive edges: the BA gets the active table alone (the
+            # JAX package appends cap_inac masked slots, which add zeros)
+            ii_i_np = jj_i_np = np.zeros(0, np.int64)
+            m_i_np = np.zeros(0, np.float32)
+            ii_i = jj_i = torch.zeros(0, dtype=torch.long, device=dev)
+            m_i = torch.zeros(0, device=dev)
+            tgt_i, w_i = self.target_inac[:0], self.weight_inac[:0]
 
-        state, net, target, weight, self._upmask = update_step(
-            state, self.params, self.intrinsics, ii, jj, mask, self.net,
-            self.target, ii_i, jj_i, m_i, tgt_i, w_i, t0, t1,
-            window=self.window, iters=iters, motion_only=motion_only,
-            lm=lm, ep=ep, update_fn=self.update_fn, agg_fn=self.agg_fn)
+        pairs = None
+        if self.sparse_ba:
+            key = (self._edges_version, use_inactive,
+                   t0 if use_inactive else None)
+            if self._pairs_key != key:
+                comb_ii = np.concatenate([ii_np, ii_i_np])
+                comb_jj = np.concatenate([jj_np, jj_i_np])
+                comb_m = np.concatenate([m_np, m_i_np]) > 0
+                raw = ba_sparse.build_pairs(comb_ii, comb_jj, comb_m)
+                cap = 1 << max(int(np.ceil(np.log2(max(raw.n_pairs, 1)))), 6)
+                self._pairs = ba_sparse.build_pairs(
+                    comb_ii, comb_jj, comb_m, capacity=cap, device=dev)
+                self._pairs_key = key
+            pairs = self._pairs
+            self.sparse_updates += 1
+
+        if self.corr_chunk is not None and self.capacity > self.corr_chunk:
+            S = self.corr_chunk
+            n_chunks = max((self.n_active + S - 1) // S, 1)
+            state, net, target, weight, self._upmask = update_chunked_step(
+                state, self.params, self.intrinsics, ii, jj, mask, self.net,
+                self.target, ii_i, jj_i, m_i, tgt_i, w_i, t0, t1, n_chunks,
+                window=self.window, chunk=S, iters=iters,
+                motion_only=motion_only, lm=lm, ep=ep,
+                update_fn=self.update_fn, agg_fn=self.agg_fn, pairs=pairs)
+            self.chunked_updates += 1
+            self.lookups += n_chunks
+        else:
+            state, net, target, weight, self._upmask = update_step(
+                state, self.params, self.intrinsics, ii, jj, mask, self.net,
+                self.target, ii_i, jj_i, m_i, tgt_i, w_i, t0, t1,
+                window=self.window, iters=iters, motion_only=motion_only,
+                lm=lm, ep=ep, update_fn=self.update_fn, agg_fn=self.agg_fn,
+                pairs=pairs)
+            self.lookups += 1
         # the tables are written in place later: own dense copies
         self.net = net.contiguous()
         self.target = target.contiguous()

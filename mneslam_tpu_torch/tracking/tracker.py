@@ -1,8 +1,10 @@
 """Tracker facade: per-frame motion filtering plus frontend updates.
 
 Port of `mneslam_tpu/tracking/tracker.py`. `run` / `run_batch` feed input
-frames through the motion filter and, when admitted, the frontend; the
-tracker owns the keyframe buffer and the host-side keyframe counter. The
+frames through the motion filter and, when admitted, the frontend;
+`global_ba` runs the backend's dense BA over the tracked history. The
+tracker owns the keyframe buffer, the host-side keyframe counter and the
+backend (which the frontend's loop BA shares). The
 tracker is inference only: its calls run under `torch.no_grad()`, so no
 autograd graph is kept across frames while the mapper trains beside it.
 
@@ -20,11 +22,9 @@ import torch
 
 from ..models.droid_net import cast_params, params_dtype
 from . import video as video_lib
+from .backend import Backend
 from .frontend import Frontend
 from .motion_filter import MotionFilter
-
-GLOBAL_BA_TODO = ("global BA (Backend.dense_ba) is not ported yet "
-                  "(ROADMAP.md Queue 1 item 6)")
 
 
 class Tracker:
@@ -56,9 +56,12 @@ class Tracker:
         self.counter = 0
         self.motion_filter = MotionFilter(
             params, thresh=tr["motion_filter"]["thresh"])
+        self.backend = Backend(params, self.intrinsics, config, self.buffer,
+                               self.ht, self.wd, update_fn=update_fn,
+                               agg_fn=agg_fn)
         self.frontend = Frontend(params, self.intrinsics, config, self.buffer,
                                  self.ht, self.wd, update_fn=update_fn,
-                                 agg_fn=agg_fn)
+                                 agg_fn=agg_fn, backend=self.backend)
 
     @torch.no_grad()
     def run(self, timestamp: float, image: torch.Tensor,
@@ -91,8 +94,13 @@ class Tracker:
         self.counter = cnt
         return admitted
 
+    @torch.no_grad()
     def global_ba(self, steps: int = 6):
-        raise NotImplementedError(GLOBAL_BA_TODO)
+        """Dense BA over the tracked history (mneslam_mp.py:51-87) ->
+        (frames, edges)."""
+        self.state, n, n_edges = self.backend.dense_ba(
+            self.state, self.counter, steps=steps)
+        return n, n_edges
 
     def poses_c2w(self, pose_compensate=None, first_gt=None) -> torch.Tensor:
         return video_lib.get_poses_c2w(self.state, self.counter,

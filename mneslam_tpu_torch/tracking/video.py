@@ -4,9 +4,9 @@ Port of `mneslam_tpu/tracking/video.py`. `VideoState` holds the keyframe
 ring buffer (timestamps, w2c poses, 1/8-resolution inverse depths, sensor
 disparities, feature / context maps, GT poses, BA damping) as tensors of
 fixed shape. Unlike the JAX package's pure functions, the writers here
-(`append_frame`, `seed_next_frame`, `windowed_ba`) update the state's
-tensors in place and return the same state: the feature buffers are
-hundreds of MB at room0, and no caller reads the state from before a
+(`append_frame`, `seed_next_frame`, `windowed_ba`, `full_ba`) update the
+state's tensors in place and return the same state: the feature buffers
+are hundreds of MB at room0, and no caller reads the state from before a
 write. `remove_keyframe` gathers into new tensors.
 
 Poses are world-to-camera [tx ty tz qx qy qz qw]; poses, disps and
@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..ops import ba as ba_lib
-from ..ops import lie, projective
+from ..ops import ba_sparse, lie, projective
 
 
 class VideoState(NamedTuple):
@@ -93,9 +93,11 @@ def remove_keyframe(state: VideoState, ix: int) -> VideoState:
 
 def seed_next_frame(state: VideoState, t1: int) -> VideoState:
     """Initialise slot t1's pose and disps from slot t1 - 1 (in place;
-    frontend.py:100-101)."""
-    state.poses[t1] = state.poses[t1 - 1]
-    state.disps[t1] = state.disps[t1 - 1].mean()
+    frontend.py:100-101). A full buffer has no slot t1 and is left as it
+    is (the JAX package's out-of-range write is dropped)."""
+    if t1 < state.poses.shape[0]:
+        state.poses[t1] = state.poses[t1 - 1]
+        state.disps[t1] = state.disps[t1 - 1].mean()
     return state
 
 
@@ -196,4 +198,26 @@ def windowed_ba(state: VideoState, intrinsics: torch.Tensor,
         iters=iters, lm=lm, ep=ep, motion_only=motion_only)
     state.poses[sl] = new_poses
     state.disps[sl] = new_disps.clamp(min=0.001)  # depth_video.py:350
+    return state
+
+
+def full_ba(state: VideoState, intrinsics: torch.Tensor,
+            target: torch.Tensor, weight: torch.Tensor, ii: torch.Tensor,
+            jj: torch.Tensor, mask: torch.Tensor, pairs: ba_sparse.SchurPairs,
+            t0: int, t1: int, iters: int = 2, lm: float = 1e-4,
+            ep: float = 0.1, motion_only: bool = False,
+            eps_damping: float = 1e-7) -> VideoState:
+    """Dense BA over the whole buffer with the sparse Schur assembly
+    (`ops/ba_sparse`), for optimisations that span more history than the
+    windowed solver holds (global BA, loop BA over long spans); written
+    back in place."""
+    problem = ba_lib.BAProblem(
+        target=target, weight=weight,
+        eta=0.2 * state.damping + eps_damping, ii=ii, jj=jj, mask=mask)
+    new_poses, new_disps = ba_sparse.bundle_adjust_sparse(
+        state.poses, state.disps, intrinsics, problem, pairs,
+        disps_sens=state.disps_sens, t0=t0, t1=t1, iters=iters, lm=lm,
+        ep=ep, motion_only=motion_only)
+    state.poses.copy_(new_poses)
+    state.disps.copy_(new_disps.clamp(min=0.001))  # depth_video.py:350
     return state

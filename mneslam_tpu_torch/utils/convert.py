@@ -1,5 +1,5 @@
-"""Carry JAX-package parameters, Adam moments and tracker state into the
-port.
+"""Carry JAX-package parameters, Adam moments and tracker state (the
+keyframe buffer, a factor graph's edge table) into the port.
 
 Inputs are JAX trees with every leaf already a numpy array (nested dicts
 and lists; the caller applies `jax.tree.map(np.asarray, ...)`), so this
@@ -58,6 +58,30 @@ def video_state_from_numpy(arrays, device="cpu",
                             else torch.float32)
 
     return VideoState(*(get(f) for f in VideoState._fields))
+
+
+def factor_graph_from_numpy(src, graph) -> None:
+    """Load a JAX `FactorGraph`'s edge table into the port's `graph`, in
+    place: the host tables (ii, jj, age, ii_inac, jj_inac) and the device
+    tables (net in the graph's dtype, target, weight, target_inac,
+    weight_inac). `src` is a dict of numpy arrays, or anything with those
+    fields as attributes whose values numpy can read (the JAX graph
+    itself). The graph's sparse-pair cache is invalidated."""
+    def get(name):
+        a = src[name] if isinstance(src, dict) else getattr(src, name)
+        return np.asarray(a)
+
+    for name in ("ii", "jj", "age", "ii_inac", "jj_inac"):
+        setattr(graph, name, get(name).astype(np.int64))
+    with torch.no_grad():
+        for name in ("net", "target", "weight", "target_inac",
+                     "weight_inac"):
+            dst = getattr(graph, name)
+            a = get(name)
+            n = min(len(a), dst.shape[0])
+            dst[:n] = torch.tensor(np.asarray(a[:n], np.float32),
+                                   device=dst.device, dtype=dst.dtype)
+    graph._edges_version += 1
 
 
 def params_to_numpy(params: Dict) -> Dict:

@@ -94,6 +94,101 @@ def test_plain_per_level_kernel_matches_pallas_interpret():
                                    atol=ATOL)
 
 
+def test_plain_mma_kernel_matches_pallas_interpret():
+    """Kernel 2b's plain version (the block form) against the Pallas
+    `mxu=True` kernel in interpret mode; HW = 192 gives blocks of 16."""
+    f1, levels, w2ps, xs = _kernel_inputs(4)
+    ii = np.array([0, 1, 0, 2], np.int32)
+    jj = np.array([1, 2, 2, 0], np.int32)
+    mask = np.array([1, 0, 1, 1], np.int32)
+    xs4 = jnp.concatenate([xs, xs[:1]])
+    ref = jpk.corr_window_int_multilevel(
+        f1, levels, jnp.asarray(ii), jnp.asarray(jj), xs4, 8, tuple(w2ps),
+        mask=jnp.asarray(mask), interpret=True, mxu=True)
+    args = (_t(f1), [_t(lv) for lv in levels], _t(ii), _t(jj),
+            _t(xs4).contiguous(), w2ps)
+    before = kcw.corr_window_multilevel_mma.launches
+    got = kcw.corr_window_multilevel_mma(*args, mask=_t(mask))
+    assert kcw.corr_window_multilevel_mma.launches == before   # CPU: plain
+    assert got.shape == (4, HT * WD, 4, 64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=RTOL,
+                               atol=ATOL)
+    assert not got[1].any()
+    # the same function as kernel 2's plain version
+    np.testing.assert_allclose(
+        got.numpy(),
+        kcw.corr_window_multilevel_plain(*args, mask=_t(mask)).numpy(),
+        rtol=RTOL, atol=ATOL)
+    # 34 pixels: no block of 16, blocks of 2
+    sub = (args[0][:, :34].contiguous(), args[1], args[2], args[3],
+           args[4][:, :34].contiguous(), w2ps)
+    np.testing.assert_allclose(
+        kcw.corr_window_multilevel_mma_plain(*sub).numpy(),
+        kcw.corr_window_multilevel_plain(*sub).numpy(), rtol=RTOL,
+        atol=ATOL)
+
+
+def _inside_coords(seed, E=3):
+    """Lookup centres within r + 1 pixels of every level (the JAX Pallas
+    paths clip centres farther out to the border: ROADMAP Queue 3)."""
+    rng = np.random.default_rng(seed)
+    return np.stack([np.stack([rng.uniform(0, WD - 1, (HT, WD)),
+                               rng.uniform(0, HT - 1, (HT, WD))], -1)
+                     for _ in range(E)]).astype(np.float32)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "pallas_mxu",
+                                  "pallas_per_level", "xla", None])
+def test_alt_corr_selection_matches_jax(impl, monkeypatch):
+    """`MNESLAM_CORR_IMPL` in the port selects the counterpart of the JAX
+    package's choice (unset: `pallas`); the mask zeroes padded edges on
+    every path. The JAX Pallas kernels run in interpret mode."""
+    fmaps, _ = _inputs(6)
+    coords = _inside_coords(6)
+    ii, jj = np.array([0, 1, 2]), np.array([1, 2, 0])
+    mask = np.array([1, 0, 1], np.int32)
+    jargs = (jnp.asarray(fmaps), jnp.asarray(ii), jnp.asarray(jj),
+             jnp.asarray(coords))
+    m = jnp.asarray(mask)
+    if impl in (None, "pallas", "pallas_mxu"):
+        ref = jcorr.alt_corr_pallas_ml(*jargs, interpret=True, mask=m,
+                                       mxu=impl == "pallas_mxu")
+    elif impl == "pallas_per_level":
+        ref = jcorr.alt_corr_pallas(*jargs, interpret=True) \
+            * m[:, None, None, None]
+    else:
+        monkeypatch.setenv("MNESLAM_CORR_IMPL", "xla")
+        ref = jcorr.alt_corr(*jargs, mask=m)
+    if impl is None:
+        monkeypatch.delenv("MNESLAM_CORR_IMPL", raising=False)
+    else:
+        monkeypatch.setenv("MNESLAM_CORR_IMPL", impl)
+    got = pcorr.alt_corr(_t(fmaps), _t(ii), _t(jj), _t(coords),
+                         mask=_t(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=RTOL,
+                               atol=ATOL)
+    assert not got[1].any()
+    # self_corr goes through the same selection
+    np.testing.assert_allclose(
+        pcorr.self_corr(_t(fmaps[0]), _t(fmaps[1])).numpy(),
+        np.asarray(jcorr.alt_corr_xla(
+            jnp.asarray(fmaps[:2]), jnp.asarray([0]), jnp.asarray([1]),
+            jnp.asarray(_coords_grid()[None]))), rtol=RTOL, atol=ATOL)
+
+
+def _coords_grid():
+    y, x = np.meshgrid(np.arange(HT), np.arange(WD), indexing="ij")
+    return np.stack([x, y], -1).astype(np.float32)
+
+
+def test_alt_corr_selection_rejects_unknown_value(monkeypatch):
+    fmaps, coords = _inputs(0)
+    monkeypatch.setenv("MNESLAM_CORR_IMPL", "pallas_fast")
+    with pytest.raises(ValueError, match="MNESLAM_CORR_IMPL"):
+        pcorr.alt_corr(_t(fmaps), _t(np.array([0])), _t(np.array([1])),
+                       _t(coords[:1]))
+
+
 def test_kernel_wrappers_reject_bad_inputs():
     f1, levels, w2ps, xs = _kernel_inputs(2)
     args = [_t(f1), [_t(lv) for lv in levels], _t(np.zeros(3, np.int32)),

@@ -24,7 +24,9 @@ def test_every_module_imports_without_jax():
               "models.nn", "models.droid_net", "ops.lie", "ops.projective",
               "ops.correlation", "ops.ba", "tracking.video",
               "tracking.graph", "tracking.motion_filter",
-              "tracking.frontend", "tracking.tracker"):
+              "tracking.frontend", "tracking.tracker", "ops.ba_sparse",
+              "tracking.dist_cache", "tracking.backend",
+              "tracking.trajectory_filler", "eval.ate"):
         assert f"mneslam_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"

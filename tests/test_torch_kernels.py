@@ -11,14 +11,16 @@ in a run-dependent order, so each output may move by up to 5e-5 of the sum
 of the magnitudes added into it (plus 1e-6); for the correlation windows,
 kernel and plain version each sum C = 128 fp32 products in their own
 order, so they differ by at most 2 * 128 * 2^-24 of the dot of the
-magnitudes (plus 1e-7).
+magnitudes (plus 1e-7). Kernel 2b (tensor cores, 3xTF32) against its plain
+version and against kernel 2: MMA_RTOL below, derived there.
 """
 
 import pytest
 import torch
 
 from mneslam_tpu_torch.kernels.corr_window import (
-    corr_window, corr_window_multilevel, corr_window_multilevel_plain,
+    corr_window, corr_window_multilevel, corr_window_multilevel_mma,
+    corr_window_multilevel_mma_plain, corr_window_multilevel_plain,
     corr_window_plain)
 from mneslam_tpu_torch.kernels.scatter_add_rows import (
     scatter_add_rows, scatter_add_rows_plain)
@@ -113,6 +115,14 @@ def test_sampler_backward_on_gpu_matches_cpu(cuda):
 
 
 CORR_RTOL = 2 * 128 * 2.0 ** -24
+# Kernel 2b takes each product as 3xTF32, a_hi b_hi + a_hi b_lo + a_lo b_hi
+# with |a - a_hi - a_lo| <= 2^-22 |a| (two round-to-nearest conversions to
+# 10 explicit mantissa bits): each product is off by at most 3 * 2^-22
+# |a b|, the dropped a_lo b_lo included. The tensor core adds the 3 C
+# products into an fp32 accumulator, each addition counted at one ulp of
+# the running sum (2^-23: rounding toward zero, no guard bit assumed), and
+# the other side (plain version or kernel 2) sums C products at 2^-24 each.
+MMA_RTOL = 3 * 2.0 ** -22 + 3 * 128 * 2.0 ** -23 + 128 * 2.0 ** -24
 
 
 def _corr_inputs(N, H, W, E, n_masked, device, seed=0, C=128):
@@ -163,6 +173,48 @@ def test_corr_window_multilevel_matches_plain(cuda, N, H, W, E, n_masked):
         assert got.abs().max() > 0
 
 
+@pytest.mark.parametrize("N,H,W,E,n_masked", [
+    (6, 12, 16, 5, 2),
+    (26, 40, 80, 91, 16),     # a room0 frontend update: 91 slots, 75 real
+    (81, 40, 80, 256, 20),    # one chunk of a room0 global BA's update
+    (2, 40, 80, 1, 0),        # the room0 motion filter's lookup
+    (3, 13, 21, 4, 1),        # HW not a multiple of the 8 pixels of a warp
+])
+def test_corr_window_mma_matches_plain_and_kernel2(cuda, N, H, W, E,
+                                                   n_masked):
+    f1, levels, ii, jj, xs, w2ps, mask = _corr_inputs(N, H, W, E, n_masked,
+                                                      cuda)
+    before = corr_window_multilevel_mma.launches
+    got = corr_window_multilevel_mma(f1, levels, ii, jj, xs, w2ps, mask=mask)
+    assert corr_window_multilevel_mma.launches == before + 1
+    mag = corr_window_multilevel_plain(f1.abs(), [lv.abs() for lv in levels],
+                                       ii, jj, xs, w2ps, mask=mask)
+    ref = corr_window_multilevel_mma_plain(f1, levels, ii, jj, xs, w2ps,
+                                           mask=mask)
+    k2 = corr_window_multilevel(f1, levels, ii, jj, xs, w2ps, mask=mask)
+    torch.cuda.synchronize()
+    assert got.shape == (E, H * W, 4, 64) and got.dtype == torch.float32
+    assert bool(((got - ref).abs() <= MMA_RTOL * mag + 1e-7).all())
+    assert bool(((got - k2).abs() <= MMA_RTOL * mag + 1e-7).all())
+    assert not got[mask == 0].any()
+    if n_masked == 0:
+        assert got.abs().max() > 0
+
+
+def test_corr_window_mma_rejects_bad_inputs(cuda):
+    f1, levels, ii, jj, xs, w2ps, mask = _corr_inputs(3, 12, 16, 2, 0, cuda,
+                                                      C=96)
+    with pytest.raises(ValueError, match="32, 64 or 128"):
+        corr_window_multilevel_mma(f1, levels, ii, jj, xs, w2ps)
+    f1, levels, ii, jj, xs, w2ps, mask = _corr_inputs(3, 12, 16, 2, 0, cuda,
+                                                      C=64)
+    got = corr_window_multilevel_mma(f1, levels, ii, jj, xs, w2ps)
+    mag = corr_window_multilevel_plain(f1.abs(), [lv.abs() for lv in levels],
+                                       ii, jj, xs, w2ps)
+    ref = corr_window_multilevel_plain(f1, levels, ii, jj, xs, w2ps)
+    assert bool(((got - ref).abs() <= MMA_RTOL * mag + 1e-7).all())
+
+
 def test_corr_window_per_level_matches_plain(cuda):
     f1, levels, ii, jj, xs, w2ps, _ = _corr_inputs(5, 40, 80, 12, 0, cuda)
     for lvl in range(4):
@@ -201,3 +253,27 @@ def test_alt_corr_on_gpu_matches_cpu(cuda):
            for d in ("cpu", cuda)]
     torch.testing.assert_close(out[1], out[0], rtol=1e-4, atol=1e-5)
     assert not out[1][mask == 0].any()
+
+
+@pytest.mark.parametrize("impl", ["pallas_mxu", "pallas_per_level", "xla"])
+def test_alt_corr_selection_on_gpu_matches_cpu(cuda, impl, monkeypatch):
+    """Each `MNESLAM_CORR_IMPL` path on the GPU against the CPU's default
+    path; `pallas_mxu` launches kernel 2b only."""
+    monkeypatch.setenv("MNESLAM_CORR_IMPL", impl)
+    g = torch.Generator().manual_seed(2)
+    fmaps = torch.randn((4, 128, 24, 32), generator=g)
+    coords = torch.rand((6, 24, 32, 2), generator=g) * 30 - 2
+    ii = torch.tensor([0, 1, 2, 3, 0, 1])
+    jj = torch.tensor([1, 2, 3, 0, 2, 1])
+    mask = torch.tensor([1, 1, 0, 1, 1, 0])
+    k2, k2b = corr_window_multilevel.launches, \
+        corr_window_multilevel_mma.launches
+    got = correlation.alt_corr(fmaps.to(cuda), ii.to(cuda), jj.to(cuda),
+                               coords.to(cuda), mask=mask.to(cuda)).cpu()
+    if impl == "pallas_mxu":
+        assert corr_window_multilevel_mma.launches == k2b + 1
+        assert corr_window_multilevel.launches == k2
+    monkeypatch.delenv("MNESLAM_CORR_IMPL")
+    ref = correlation.alt_corr(fmaps, ii, jj, coords, mask=mask)
+    torch.testing.assert_close(got, ref, rtol=1e-3, atol=1e-4)
+    assert not got[mask == 0].any()

@@ -302,19 +302,32 @@ def test_slam_mode_oracle_recovers_key_poses(tmp_path):
                                atol=1e-4)
     assert all(np.isfinite(v) for m in slam.metrics_log for v in m.values())
     assert os.path.exists(res["checkpoint"])
+    # terminate filled every frame's pose and evaluated it
+    est = np.load(os.path.join(slam.out_dir, "est_poses.npy"))
+    assert est.shape == (14, 4, 4)
+    assert res["ate"]["n"] == 14 and res["ate"]["rmse"] < KEY_POSE_TOL_M
+    assert os.path.exists(os.path.join(slam.out_dir, "metrics_traj.txt"))
 
 
 def test_loop_ba_and_global_ba_raise_when_they_would_run(tmp_path):
+    """Past `tracking.frontend.window` the loop BA (with `enable_loop`) and
+    the periodic global BA run (they raised before the backend was
+    ported), and terminate fills the trajectory and evaluates it."""
     slam, _ = _slam(tmp_path / "a", num_frames=8,
                     frontend={"enable_loop": True, "window": 5})
-    with pytest.raises(NotImplementedError, match="loop BA"):
-        slam.run_slam()
-    assert slam.tracker.frontend.t1 == 6         # first keyframe past 5
+    res = slam.run_slam()
+    assert slam.tracker.counter == 8
+    # keyframes 6, 7, 8 run the loop BA in place of the last 2 updates
+    assert slam.tracker.backend.loop_bas == 3
+    assert slam.tracker.frontend.last_loop_t == 8
+    assert res["ate"]["rmse"] < KEY_POSE_TOL_M
     slam, _ = _slam(tmp_path / "b", num_frames=8, frontend={"window": 5})
     slam.global_ba_every = 2
-    with pytest.raises(NotImplementedError, match="global BA"):
-        slam.run_slam()
+    res = slam.run_slam()
+    assert slam.tracker.backend.loop_bas == 0
+    assert slam.tracker.backend.dense_bas == 1   # at 8 keyframes
     assert slam.tracker.counter > 5
+    assert res["ate"]["rmse"] < KEY_POSE_TOL_M
 
 
 def test_tracking_resize_matches_jax(tmp_path):
@@ -375,3 +388,4 @@ def test_cli_slam_run_on_cpu(tmp_path):
     poses = np.load(os.path.join(os.path.dirname(res["checkpoint"]),
                                  "key_est_poses.npy"))
     assert poses.shape == (6, 4, 4) and np.isfinite(poses).all()
+    assert np.isfinite(res["ate"]["rmse"])

@@ -171,10 +171,35 @@ def test_keyframe_removal_consistency():
 
 
 def test_unported_graph_options_raise():
-    for kw in ({"sparse_ba": True}, {"corr_chunk": 8}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pgraph.FactorGraph(B, HT, WD, capacity=8, params={},
+    """`sparse_ba` and `corr_chunk` are ported now (they raised before):
+    they construct, and the capacity rounds up to a multiple of the chunk
+    as in the JAX package. Their updates are held against JAX in
+    tests/test_torch_backend.py."""
+    for kw, cap in (({"sparse_ba": True}, 10), ({"corr_chunk": 8}, 16)):
+        g = pgraph.FactorGraph(B, HT, WD, capacity=10, params={},
                                intrinsics=torch.tensor(INTR), **kw)
+        j = jgraph.FactorGraph(B, HT, WD, capacity=10, params={},
+                               intrinsics=jnp.asarray(INTR), **kw)
+        assert g.capacity == j.capacity == cap
+        assert g.sparse_ba == j.sparse_ba and g.corr_chunk == j.corr_chunk
+        assert g.net.shape[0] == cap
+
+
+def test_seed_next_frame_at_a_full_buffer_is_a_no_op():
+    """The JAX package drops the out-of-range write of slot t1 == buffer
+    (a buffer filled to its last slot); the port leaves the state as it
+    is too, where it used to raise an IndexError."""
+    arrays = _shared_state(4)
+    js, ts = _jax_state(arrays), video_state_from_numpy(arrays)
+    js = jvideo.seed_next_frame(js, jnp.asarray(B))
+    ts = pvideo.seed_next_frame(ts, B)
+    np.testing.assert_array_equal(ts.poses.numpy(), np.asarray(js.poses))
+    np.testing.assert_array_equal(ts.disps.numpy(), np.asarray(js.disps))
+    np.testing.assert_array_equal(ts.poses.numpy(), arrays["poses"])
+    ts = pvideo.seed_next_frame(ts, 3)
+    js = jvideo.seed_next_frame(js, jnp.asarray(3))
+    np.testing.assert_allclose(ts.disps.numpy(), np.asarray(js.disps),
+                               rtol=1e-6)
 
 
 def test_frame_distance_and_proximity_factors_match_jax():
