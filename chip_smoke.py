@@ -37,7 +37,13 @@ Phases, each of which must pass (any failure exits non-zero):
      correlation lookup is a launch of kernel 2b and none of kernel 2;
  10. each kernel against its plain PyTorch version at the main path's
      shapes, with times (CUDA events) beside its bound and, where one
-     exists, the one-call PyTorch yardstick.
+     exists, the one-call PyTorch yardstick;
+ 11. the TPU probes on the H100 (`mneslam_tpu_torch/tools/prof_corr.py`,
+     `prof_scatter.py` in fp32 and bf16): every variant checked against
+     its plain version, then timed, with the launch counts set to 0 just
+     before and read just after; the scatter probe also runs kernel 1 and
+     the blocked and bucketed scatters on one mapping iteration's real
+     index stream (every result in probes.json beside the profile tables).
 Prints the kernels' JSON line, then as the last line
 {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc; imports
 nothing of JAX.
@@ -45,7 +51,6 @@ nothing of JAX.
 
 from __future__ import annotations
 
-import contextlib
 import json
 import math
 import os
@@ -58,12 +63,6 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # the room0 run's own outputs (a 130 MB checkpoint) go to output/
 OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 RUN_OUT = os.path.join(ROOT, "output", "chip_smoke")
-
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 non-tensor FLOP/s,
-# TF32 tensor-core FLOP/s (dense)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
-TF32_FLOPS = 495e12
 
 # 6 scatter calls per mapping iteration: 2 levels x 3 planes
 SCATTERS_PER_ITER = 6
@@ -121,29 +120,25 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-@contextlib.contextmanager
-def corr_impl(value: str):
-    """MNESLAM_CORR_IMPL set in-process for the block, restored after."""
-    old = os.environ.get("MNESLAM_CORR_IMPL")
-    os.environ["MNESLAM_CORR_IMPL"] = value
-    try:
-        yield
-    finally:
-        if old is None:
-            os.environ.pop("MNESLAM_CORR_IMPL")
-        else:
-            os.environ["MNESLAM_CORR_IMPL"] = old
-
-
 def _wrappers():
     from mneslam_tpu_torch.kernels.corr_window import (
-        corr_window, corr_window_multilevel, corr_window_multilevel_mma)
-    from mneslam_tpu_torch.kernels.scatter_add_rows import scatter_add_rows
+        corr_window, corr_window_multilevel, corr_window_multilevel_mma,
+        corr_window_multilevel_unrolled)
+    from mneslam_tpu_torch.kernels.scatter_add_rows import (
+        scatter_add_rows, scatter_add_rows_per_warp)
+    from mneslam_tpu_torch.kernels.scatter_rows_blocked import (
+        scatter_add_rows_blocked)
+    from mneslam_tpu_torch.kernels.scatter_rows_bucketed import (
+        scatter_add_rows_bucketed)
 
     return {"scatter_add_rows": scatter_add_rows,
             "corr_window": corr_window_multilevel,
             "corr_window_mma": corr_window_multilevel_mma,
-            "corr_window_per_level": corr_window}
+            "corr_window_per_level": corr_window,
+            "scatter_add_rows_per_warp": scatter_add_rows_per_warp,
+            "corr_window_unrolled": corr_window_multilevel_unrolled,
+            "scatter_add_rows_blocked": scatter_add_rows_blocked,
+            "scatter_add_rows_bucketed": scatter_add_rows_bucketed}
 
 
 def reset_launches():
@@ -166,22 +161,6 @@ def lookups(slam) -> int:
     t = slam.tracker
     return (t.motion_filter.comparisons + t.frontend.graph.lookups
             + t.backend.lookups + slam.traj_filler.lookups)
-
-
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def tiny_config(out_dir):
@@ -446,6 +425,7 @@ def oracle_tracking():
     import numpy as np
 
     from mneslam_tpu_torch.data.synthetic import SyntheticBoxDataset
+    from mneslam_tpu_torch.tools.prof_corr import corr_impl
 
     cfg = tiny_slam_config(os.path.join(RUN_OUT, "oracle"))
     ds = SyntheticBoxDataset(cfg, num_frames=16)
@@ -595,27 +575,6 @@ def corr_path_inputs(slam, n_real=75, cap=None, seed=0):
             torch.as_tensor(mask, device="cuda"))
 
 
-def corr_bound_ms(f1, levels, ii, jj, xs, mask, flops_per_s=FP32_FLOPS):
-    """The least time for the real edges' work: bytes (f1 rows of the
-    distinct source frames, the padded levels of the distinct target
-    frames, the slab starts, the output, each once) over the HBM rate, and
-    the useful operations (2 C per output) over the rate of the unit the
-    kernel uses (fp32 CUDA cores, or TF32 tensor cores for kernel 2b); ->
-    (ms, "bytes" or "operations", bytes, flops)."""
-    real = mask != 0
-    E_real = int(real.sum())
-    HW, C = f1.shape[1], f1.shape[2]
-    L = len(levels)
-    n_i = int(ii[real].unique().numel())
-    n_j = int(jj[real].unique().numel())
-    nbytes = (n_i * HW * C * 4 + n_j * sum(lv.shape[1] for lv in levels) * C
-              * 4 + E_real * HW * L * 4 + E_real * HW * L * 64 * 4)
-    flops = 2 * C * 64 * L * HW * E_real
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes > t_ops else "operations", nbytes, flops)
-
-
 def check_corr(got, ref, mag, mask=None, rtol=CORR_RTOL,
                what="corr_window vs its plain version"):
     """Kernel output vs a reference; masked edges must be exactly zero.
@@ -632,6 +591,101 @@ def check_corr(got, ref, mag, mask=None, rtol=CORR_RTOL,
     return float(err.max()), ratio
 
 
+def tpu_probes(real, card) -> dict:
+    """Phase 11: the H100 counterparts of the TPU probes (`mneslam_tpu_torch/
+    tools/prof_corr.py`, `prof_scatter.py` in fp32 and bf16), the scatter
+    probe also on the `real` cases (tag, idx, vals, n_rows). Writes every
+    result to probes.json in OUT; raises SystemExit on a
+    wrong or failing variant. -> {"seconds", the extra keys of the
+    "scatter_add_rows" and "corr_window" entries, the two new kernels'
+    entries without their launch counts}."""
+    import torch
+
+    from mneslam_tpu_torch.kernels.scatter_rows_blocked import (
+        DEFAULT_TILE_ROWS)
+    from mneslam_tpu_torch.tools import prof_corr, prof_scatter
+
+    t0 = time.perf_counter()
+    corr = prof_corr.run("cuda", log=log)
+    # K = 10 calls per timed run (the probe's own default is 20), to keep
+    # this phase near a minute
+    scat = prof_scatter.run("cuda", cases=real, reps=10, log=log)
+    scat_bf16 = prof_scatter.run("cuda", bf16=True, reps=10, log=log)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(OUT, "probes.json"), "w") as f:
+        json.dump({"card": card, "corr": corr, "scatter": scat,
+                   "scatter_bf16": scat_bf16}, f)
+    failed = corr["failed"] + scat["failed"] + scat_bf16["failed"]
+    if failed:
+        raise SystemExit(f"probe variants wrong or failing: {failed}")
+    unequal = [k for k, v in corr.items()
+               if isinstance(v, dict) and v.get("equal_to_kernel2") is False]
+    log(f"corr unroll variants equal to kernel 2 bit for bit: "
+        f"{not unequal} (unequal: {unequal})")
+
+    def real_sum(variant, key="ms"):
+        """A variant's `key` summed over the real stream's calls."""
+        return sum(v[key] for k, v in scat.items()
+                   if k.startswith("real:") and k.endswith(f"/{variant}"))
+
+    def max_err(prefix):
+        return max(v["max_abs_err"] for res in (scat, scat_bf16)
+                   for k, v in res.items() if isinstance(v, dict)
+                   and "max_abs_err" in v
+                   and k.split("/")[-1].startswith(prefix))
+
+    tiles = prof_scatter.TILES
+    log(f"real index stream, sum of one iteration's {len(real)} calls (ms): "
+        f"kernel 1 {real_sum('kernel1'):.4f}; serialU8/16/32 "
+        f"{[round(real_sum(f'serialU{u}'), 4) for u in (8, 16, 32)]}; "
+        f"blocked T {list(tiles)} "
+        f"{[round(real_sum(f'blockedT{t}'), 4) for t in tiles]}; bucketed "
+        f"{[round(real_sum(f'bucketT{t}'), 4) for t in tiles]}; presorted "
+        f"{[round(real_sum(f'bucketT{t}_presorted'), 4) for t in tiles]}; "
+        f"route {real_sum('route'):.4f}; index_add_ {real_sum('xla'):.4f}; "
+        f"bound {real_sum('kernel1', 'bound_ms'):.4f}")
+    T = DEFAULT_TILE_ROWS
+    tol = (f"{prof_scatter.SCATTER_RTOL:g} x sum|vals| + "
+           f"{prof_scatter.SCATTER_ATOL:g} (+ one bf16 ulp)")
+
+    def entry(name, source, replaces, variant, plain, timed_as):
+        return {"name": name, "route": "cuda",
+                "source": f"mneslam_tpu_torch/kernels/csrc/{source}",
+                "replaces": replaces, "max_abs_err": max_err(variant),
+                "tolerance": tol, "ms": real_sum(f"{variant}T{T}"),
+                "plain_ms": real_sum(plain),
+                "bound_ms": real_sum(f"{variant}T{T}", "bound_ms"),
+                "bound_by": "bytes", "library_ms": real_sum("xla"),
+                "timed_as": f"sum of one mapping iteration's {len(real)} "
+                            f"calls on the real index stream, {timed_as}"
+                            f"tiles of {T} rows",
+                "ms_by_tile": {t: real_sum(f"{variant}T{t}")
+                               for t in tiles}}
+
+    bucketed = entry("scatter_add_rows_bucketed", "scatter_rows_bucketed.cu",
+                     "tools/prof_scatter_bucketed.py:82", "bucket",
+                     "bucket_plain", "route included, ")
+    bucketed.update(route_ms=real_sum("route"),
+                    presorted_ms=real_sum(f"bucketT{T}_presorted"))
+    return {
+        "seconds": seconds,
+        "scatter_add_rows": {
+            "per_warp_ms": {u: real_sum(f"serialU{u}") for u in (8, 16, 32)},
+            "probe_ms": real_sum("kernel1")},
+        "corr_window": {
+            "probe_ms": corr["kernel2+skip"]["ms"],
+            "unroll_ms": {u: corr[f"kernel2+skip u{u}"]["ms"]
+                          for u in prof_corr.UNROLLS},
+            "unroll_equal_to_kernel2": not unequal},
+        "scatter_add_rows_blocked": entry(
+            "scatter_add_rows_blocked", "scatter_rows_blocked.cu",
+            "tools/prof_pallas_scatter.py:61", "blocked", "blocked_plain",
+            ""),
+        "scatter_add_rows_bucketed": bucketed,
+    }
+
+
 def main():
     import numpy as np
     import torch
@@ -645,6 +699,10 @@ def main():
     from mneslam_tpu_torch.kernels import build
     from mneslam_tpu_torch.kernels.scatter_add_rows import (
         scatter_add_rows, scatter_add_rows_plain)
+    from mneslam_tpu_torch.tools.measure import (FP32_FLOPS, HBM_BYTES_PER_S,
+                                                 TF32_FLOPS, corr_bound_ms,
+                                                 cuda_ms)
+    from mneslam_tpu_torch.tools.prof_corr import corr_impl
 
     resolve_device("cuda")  # TF32 off
     os.makedirs(OUT, exist_ok=True)
@@ -1119,6 +1177,20 @@ def main():
             f"plain {r_p:.3f}, vs kernel 2 {r_k:.3f} (tolerance "
             f"{MMA_RTOL:.3g} x dot of magnitudes + {CORR_ATOL:g})")
 
+    # 11. the TPU probes on the H100, with the counts set to 0 just before
+    #     and read just after
+    real = [(f"real:{name}", idx, vals, n_rows)
+            for name, idx, vals, n_rows in path_scatter_inputs(slam, gen)]
+    reset_launches()
+    probes = tpu_probes(real, card)
+    probe_launches = read_launches()
+    del real
+    log(f"TPU probes on the H100: {probes['seconds']:.1f} s; launches "
+        f"{json.dumps(probe_launches)}")
+    for name in ("scatter_add_rows_blocked", "scatter_add_rows_bucketed"):
+        probes[name]["launches"] = probe_launches[name]
+        probes[name]["launches_by_path"] = {"probes": probe_launches[name]}
+
     kernels = [{
         "name": "scatter_add_rows",
         "route": "cuda",
@@ -1126,7 +1198,8 @@ def main():
         "replaces": "mneslam_tpu/ops/pallas_kernels.py:283",
         "launches": slaunches["scatter_add_rows"],
         "launches_by_path": {"slam": slaunches["scatter_add_rows"],
-                             "mapping": map_launches},
+                             "mapping": map_launches,
+                             "probes": probe_launches["scatter_add_rows"]},
         "max_abs_err": max_err,
         "max_err": max_err,
         "tolerance": f"{SCATTER_RTOL:g} x sum|vals| + {SCATTER_ATOL:g}",
@@ -1137,6 +1210,9 @@ def main():
         "bound_by": "bytes",
         "library_ms": totals["library_ms"],
         "timed_as": "sum of one mapping iteration's 6 calls",
+        **probes["scatter_add_rows"],
+        "probe_launches": probe_launches["scatter_add_rows"]
+        + probe_launches["scatter_add_rows_per_warp"],
         "iter_ms": iter_ms,
         "iter_device_ms": device_ms,
         "keyframe_ms": kf_ms,
@@ -1159,6 +1235,9 @@ def main():
         "timed_as": f"one frontend lookup: {E} edge slots, "
                     f"{int(cmask.sum())} real, 4 levels",
         "e1_ms": m_ms, "e1_plain_ms": m_plain, "e1_bound_ms": m_bound,
+        **probes["corr_window"],
+        "probe_launches": probe_launches["corr_window"]
+        + probe_launches["corr_window_unrolled"],
         "global_chunk_ms": mma["global_chunk"]["kernel2_ms"],
         "frontend_update_ms": upd_ms,
         "frontend_update_device_ms": upd_dev_ms,
@@ -1208,7 +1287,8 @@ def main():
         "library_ms": None,
         "timed_as": f"the four levels launched one by one over {E} edge "
                     f"slots, all computed",
-    }]
+    }, probes["scatter_add_rows_blocked"],
+        probes["scatter_add_rows_bucketed"]]
     idle = [k["name"] for k in kernels if not k["launches"] >= 1]
     if idle:
         raise SystemExit(f"kernels never launched on their path: {idle}")

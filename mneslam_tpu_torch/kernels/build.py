@@ -22,7 +22,8 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-KERNEL_SOURCES = ("scatter_add_rows", "corr_window", "corr_window_mma")
+KERNEL_SOURCES = ("scatter_add_rows", "corr_window", "corr_window_mma",
+                  "scatter_rows_blocked", "scatter_rows_bucketed")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -6,7 +6,9 @@ level) of mneslam_tpu/ops/pallas_kernels.py. On CUDA tensors the wrappers
 launch the hand-written kernels in `csrc/corr_window.cu` (kernels 2 and 3)
 and `csrc/corr_window_mma.cu` (kernel 2b, tensor cores) or raise; on CPU
 tensors they run the plain PyTorch versions below. There is no size gate
-and no fallback.
+and no fallback. `corr_window_multilevel_unrolled` launches kernel 2 with
+its pixel loop unrolled U-fold, the counterparts of the TPU probe
+tools/prof_corr6.py; no caller on the main path uses it.
 
 Contract, the same on both paths. f1_rows [N, HW, C] float32 (level 0,
 already scaled by 1/4); each f2 level [N, R_l, C] float32, the zero-padded
@@ -27,6 +29,7 @@ from typing import Optional, Sequence
 import torch
 
 NX = 8                      # window side: 2 * radius + 2 at radius 3
+UNROLLS = (1, 2, 4, 8, 16)  # pixel-loop unrolls of `corr_window_unrolled`
 _VOLUME_BYTES = 1 << 28     # plain version: dot volume per edge chunk
 
 
@@ -157,17 +160,22 @@ def _check(f1_rows, f2_levels, ii, jj, xs, w2ps, mask, mma=False):
 
 
 def _launch_cuda(f1_rows, f2_levels, ii, jj, xs, w2ps, mask,
-                 source="corr_window"):
+                 source="corr_window", unroll=None):
     """Launch the C entry `source` of `csrc/<source>.cu` (both kernels take
-    the same arguments)."""
+    the same arguments), or with `unroll` the entry `corr_window_unrolled`
+    of `csrc/corr_window.cu`, which takes the unroll before the stream."""
     from . import build
 
-    fn = getattr(build.load(source), source)
+    lib = build.load(source)
+    fn = lib.corr_window_unrolled if unroll is not None else getattr(
+        lib, source)
+    extra = () if unroll is None else (unroll,)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                   ctypes.c_int64, ctypes.c_void_p]
+                   ctypes.c_int64] + [ctypes.c_int64] * len(extra) + [
+                       ctypes.c_void_p]
     fn.restype = ctypes.c_int
     E, HW, L = xs.shape
     C = f1_rows.shape[2]
@@ -183,7 +191,7 @@ def _launch_cuda(f1_rows, f2_levels, ii, jj, xs, w2ps, mask,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(f1_rows.data_ptr(), ptrs, rows, widths, ii.data_ptr(),
                  jj.data_ptr(), mask.data_ptr(), xs.data_ptr(),
-                 out.data_ptr(), E, HW, C, L, stream)
+                 out.data_ptr(), E, HW, C, L, *extra, stream)
     if err != 0:
         raise RuntimeError(f"{source} kernel launch failed: "
                            f"cudaError {err}")
@@ -203,6 +211,32 @@ def corr_window_multilevel(f1_rows: torch.Tensor,
     if f1_rows.device.type == "cuda":
         out = _launch_cuda(f1_rows, f2_levels, ii, jj, xs, w2ps, mask)
         corr_window_multilevel.launches += 1
+        return out
+    if f1_rows.device.type == "cpu":
+        return corr_window_multilevel_plain(f1_rows, f2_levels, ii, jj, xs,
+                                            w2ps, mask)
+    raise ValueError(f"unsupported device {f1_rows.device}")
+
+
+def corr_window_multilevel_unrolled(f1_rows: torch.Tensor,
+                                    f2_levels: Sequence[torch.Tensor],
+                                    ii: torch.Tensor, jj: torch.Tensor,
+                                    xs: torch.Tensor, w2ps: Sequence[int],
+                                    mask: Optional[torch.Tensor] = None,
+                                    unroll: int = 16) -> torch.Tensor:
+    """`corr_window_multilevel` with the kernel's pixel loop unrolled
+    `unroll`-fold (1, 2, 4, 8 or 16): the counterparts of the TPU probe's
+    pixel-loop unroll (tools/prof_corr6.py). Each output's FMA sequence is
+    the production kernel's, so the result is the same bit for bit. The
+    plain version for CPU tensors is `corr_window_multilevel_plain`.
+    `corr_window_multilevel_unrolled.launches` counts kernel launches."""
+    _check(f1_rows, f2_levels, ii, jj, xs, w2ps, mask)
+    if unroll not in UNROLLS:
+        raise ValueError(f"unroll must be one of {UNROLLS}, got {unroll}")
+    if f1_rows.device.type == "cuda":
+        out = _launch_cuda(f1_rows, f2_levels, ii, jj, xs, w2ps, mask,
+                           unroll=unroll)
+        corr_window_multilevel_unrolled.launches += 1
         return out
     if f1_rows.device.type == "cpu":
         return corr_window_multilevel_plain(f1_rows, f2_levels, ii, jj, xs,
@@ -251,5 +285,6 @@ def corr_window(f1_rows: torch.Tensor, f2_rows_pad: torch.Tensor,
 
 
 corr_window_multilevel.launches = 0
+corr_window_multilevel_unrolled.launches = 0
 corr_window_multilevel_mma.launches = 0
 corr_window.launches = 0

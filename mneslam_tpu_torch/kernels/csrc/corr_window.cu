@@ -37,6 +37,12 @@
 // (4 FMAs per 16-byte load); reusing rows across neighbouring pixels from
 // shared memory, or tensor cores, is the work of a later version.
 //
+// The entry `corr_window_unrolled` builds the same kernel with the pixel
+// loop unrolled U-fold (U in 1, 2, 4, 8, 16): the counterparts of the TPU
+// probe's pixel-loop unroll (tools/prof_corr6.py). Every output keeps its
+// FMA sequence, so they equal the production entry bit for bit; the
+// production entry `corr_window` leaves the unroll to the compiler.
+//
 // Interface: plain C, for ctypes. The caller owns every buffer, passes
 // PyTorch's current stream, and gets cudaGetLastError() back. Slab starts
 // are clamped so that no read leaves its frame, whatever xs holds.
@@ -57,6 +63,9 @@ struct Levels {
   int64_t w2p[kMaxLevels];      // padded row width
 };
 
+// kUnroll 0: the compiler's choice (the production entry); otherwise the
+// pixel loop carries `#pragma unroll (kUnroll)`
+template <int kUnroll>
 __global__ void corr_window_kernel(const float* __restrict__ f1,
                                    const Levels lv,
                                    const int* __restrict__ ii,
@@ -97,7 +106,7 @@ __global__ void corr_window_kernel(const float* __restrict__ f1,
   const float* f2 = lv.f2[l] + (int64_t)jj[e] * rows * c;
   const int nk = c / 32;
 
-  for (int t = 0; t < kTile; ++t) {
+  auto pixel = [&](int t) {
     const int p = p0 + t;
     // every lane runs every pixel, so the shuffles below see a full warp
     const int pc = p < hw ? p : hw - 1;
@@ -144,18 +153,21 @@ __global__ void corr_window_kernel(const float* __restrict__ f1,
     const float r = keep + __shfl_xor_sync(0xffffffffu, send, 1);
 
     if (p < hw) out_e[(int64_t)p * per_pixel + l * kNx * kNx + j * kNx + s] = r;
+  };
+
+  if constexpr (kUnroll == 0) {
+    for (int t = 0; t < kTile; ++t) pixel(t);
+  } else {
+#pragma unroll (kUnroll)
+    for (int t = 0; t < kTile; ++t) pixel(t);
   }
 }
 
-}  // namespace
-
-// f2 / rows / w2p: arrays of n_levels entries. Returns a cudaError_t.
-extern "C" int corr_window(const void* f1, const void* const* f2,
-                           const int64_t* rows, const int64_t* w2p,
-                           const void* ii, const void* jj, const void* mask,
-                           const void* xs, void* out, int64_t n_edges,
-                           int64_t hw, int64_t c, int64_t n_levels,
-                           void* stream) {
+template <int kUnroll>
+int launch(const void* f1, const void* const* f2, const int64_t* rows,
+           const int64_t* w2p, const void* ii, const void* jj,
+           const void* mask, const void* xs, void* out, int64_t n_edges,
+           int64_t hw, int64_t c, int64_t n_levels, void* stream) {
   if (n_levels < 1 || n_levels > kMaxLevels || c % 32 != 0) {
     return (int)cudaErrorInvalidValue;
   }
@@ -172,14 +184,49 @@ extern "C" int corr_window(const void* f1, const void* const* f2,
     const int threads = (int)n_levels * kNx * kGroup;
     const size_t smem = (size_t)kTile * c * sizeof(float);
     if (smem > 48 * 1024) {
-      cudaFuncSetAttribute(corr_window_kernel,
+      cudaFuncSetAttribute(corr_window_kernel<kUnroll>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
     }
-    corr_window_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+    corr_window_kernel<kUnroll><<<grid, threads, smem,
+                                  (cudaStream_t)stream>>>(
         (const float*)f1, lv, (const int*)ii, (const int*)jj,
         (const int*)mask, (const int*)xs, (float*)out, (int)hw, (int)c,
         (int)n_levels);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// f2 / rows / w2p: arrays of n_levels entries. Returns a cudaError_t.
+extern "C" int corr_window(const void* f1, const void* const* f2,
+                           const int64_t* rows, const int64_t* w2p,
+                           const void* ii, const void* jj, const void* mask,
+                           const void* xs, void* out, int64_t n_edges,
+                           int64_t hw, int64_t c, int64_t n_levels,
+                           void* stream) {
+  return launch<0>(f1, f2, rows, w2p, ii, jj, mask, xs, out, n_edges, hw, c,
+                   n_levels, stream);
+}
+
+// The same with the pixel loop unrolled `unroll`-fold (1, 2, 4, 8 or 16).
+extern "C" int corr_window_unrolled(const void* f1, const void* const* f2,
+                                    const int64_t* rows, const int64_t* w2p,
+                                    const void* ii, const void* jj,
+                                    const void* mask, const void* xs,
+                                    void* out, int64_t n_edges, int64_t hw,
+                                    int64_t c, int64_t n_levels,
+                                    int64_t unroll, void* stream) {
+#define CORR_ARGS f1, f2, rows, w2p, ii, jj, mask, xs, out, n_edges, hw, c, \
+                  n_levels, stream
+  switch (unroll) {
+    case 1: return launch<1>(CORR_ARGS);
+    case 2: return launch<2>(CORR_ARGS);
+    case 4: return launch<4>(CORR_ARGS);
+    case 8: return launch<8>(CORR_ARGS);
+    case 16: return launch<16>(CORR_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef CORR_ARGS
 }

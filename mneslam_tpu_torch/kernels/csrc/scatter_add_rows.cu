@@ -8,7 +8,10 @@
 // at most 227 KB of shared memory, far below a plane table (hundreds of MB
 // at room0 widths), and blocks run in parallel in no order.
 //
-// Design: one warp per run of ROWS_PER_WARP consecutive updates. Lane l
+// Design: one warp per run of kRowsPerWarp consecutive updates (8 in the
+// production entries; the `scatter_add_rows_per_warp` entry also builds 16
+// and 32, the counterparts of the TPU probe's unroll depths in
+// tools/prof_scatter_bucketed.py `make_serial`). Lane l
 // owns columns l, l + 32, l + 64, ... of the row, so every load and every
 // atomic of the warp covers 32 consecutive floats (one 128-byte line). The
 // warp keeps a running sum in registers while consecutive updates hit the
@@ -25,7 +28,8 @@
 //
 // Interface: plain C, for ctypes. The caller owns every buffer (the output
 // must already be zero-filled), passes PyTorch's current stream, and gets
-// cudaGetLastError() back.
+// cudaGetLastError() back (cudaErrorInvalidValue for a run length the
+// per-warp entry does not build).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -35,7 +39,7 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr int kColsPerLane = 4;              // a warp pass covers 128 columns
-constexpr int kRowsPerWarp = 8;
+constexpr int kProductionRowsPerWarp = 8;
 constexpr int kThreads = 256;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -56,7 +60,7 @@ __device__ __forceinline__ void flush(float* __restrict__ out, int64_t row,
   }
 }
 
-template <typename T>
+template <typename T, int kRowsPerWarp>
 __global__ void scatter_add_rows_kernel(const int64_t* __restrict__ idx,
                                         const T* __restrict__ vals,
                                         float* __restrict__ out, int64_t nu,
@@ -90,17 +94,30 @@ __global__ void scatter_add_rows_kernel(const int64_t* __restrict__ idx,
   }
 }
 
-template <typename T>
+template <typename T, int kRowsPerWarp>
 int launch(const void* idx, const void* vals, void* out, int64_t nu,
            int64_t width, int64_t n_rows, void* stream) {
   if (nu > 0 && width > 0) {
     const int64_t warps = (nu + kRowsPerWarp - 1) / kRowsPerWarp;
     const int64_t blocks = (warps * kWarp + kThreads - 1) / kThreads;
-    scatter_add_rows_kernel<T><<<(unsigned int)blocks, kThreads, 0,
-                                 (cudaStream_t)stream>>>(
+    scatter_add_rows_kernel<T, kRowsPerWarp><<<(unsigned int)blocks,
+                                               kThreads, 0,
+                                               (cudaStream_t)stream>>>(
         (const int64_t*)idx, (const T*)vals, (float*)out, nu, width, n_rows);
   }
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_per_warp(const void* idx, const void* vals, void* out, int64_t nu,
+                    int64_t width, int64_t n_rows, int64_t per_warp,
+                    void* stream) {
+  switch (per_warp) {
+    case 8: return launch<T, 8>(idx, vals, out, nu, width, n_rows, stream);
+    case 16: return launch<T, 16>(idx, vals, out, nu, width, n_rows, stream);
+    case 32: return launch<T, 32>(idx, vals, out, nu, width, n_rows, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -108,11 +125,25 @@ int launch(const void* idx, const void* vals, void* out, int64_t nu,
 extern "C" int scatter_add_rows_f32(const void* idx, const void* vals,
                                     void* out, int64_t nu, int64_t width,
                                     int64_t n_rows, void* stream) {
-  return launch<float>(idx, vals, out, nu, width, n_rows, stream);
+  return launch<float, kProductionRowsPerWarp>(idx, vals, out, nu, width,
+                                              n_rows, stream);
 }
 
 extern "C" int scatter_add_rows_bf16(const void* idx, const void* vals,
                                      void* out, int64_t nu, int64_t width,
                                      int64_t n_rows, void* stream) {
-  return launch<__nv_bfloat16>(idx, vals, out, nu, width, n_rows, stream);
+  return launch<__nv_bfloat16, kProductionRowsPerWarp>(idx, vals, out, nu,
+                                                      width, n_rows, stream);
+}
+
+// The same kernel with per_warp (8, 16 or 32) consecutive updates per warp;
+// bf16 != 0 for bfloat16 values.
+extern "C" int scatter_add_rows_per_warp(const void* idx, const void* vals,
+                                         void* out, int64_t nu, int64_t width,
+                                         int64_t n_rows, int64_t per_warp,
+                                         int64_t bf16, void* stream) {
+  return bf16 ? launch_per_warp<__nv_bfloat16>(idx, vals, out, nu, width,
+                                               n_rows, per_warp, stream)
+              : launch_per_warp<float>(idx, vals, out, nu, width, n_rows,
+                                       per_warp, stream);
 }

@@ -5,6 +5,10 @@ Port of the Pallas row scatter `scatter_add_rows` /
 tensor the wrapper launches the hand-written kernel in
 `csrc/scatter_add_rows.cu` (or raises); on a CPU tensor it runs the plain
 PyTorch version below. There is no size gate and no fallback.
+`scatter_add_rows_per_warp` launches the same kernel with 16 or 32
+updates per warp (the counterparts of the TPU probe
+tools/prof_scatter_bucketed.py `make_serial` at unroll 16 / 32); no caller
+on the main path uses it.
 
 Contract, the same on both paths: idx [nu] integer, vals [nu, width]
 float32 or bfloat16, result [n_rows, width] in vals' dtype, with sums taken
@@ -45,16 +49,27 @@ def _check(idx: torch.Tensor, vals: torch.Tensor, n_rows: int):
         raise ValueError(f"n_rows must be >= 0, got {n_rows}")
 
 
-def _launch_cuda(idx: torch.Tensor, vals: torch.Tensor,
-                 n_rows: int) -> torch.Tensor:
+PER_WARP = (8, 16, 32)      # updates per warp the kernel is built for
+
+
+def _launch_cuda(idx: torch.Tensor, vals: torch.Tensor, n_rows: int,
+                 per_warp=None) -> torch.Tensor:
+    """Launch `scatter_add_rows_f32` / `_bf16` (the production entries), or
+    `scatter_add_rows_per_warp` with `per_warp` updates per warp."""
     from . import build
 
     lib = build.load("scatter_add_rows")
-    fn = (lib.scatter_add_rows_f32 if vals.dtype == torch.float32
-          else lib.scatter_add_rows_bf16)
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                   ctypes.c_void_p]
+    args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64]
+    if per_warp is None:
+        fn = (lib.scatter_add_rows_f32 if vals.dtype == torch.float32
+              else lib.scatter_add_rows_bf16)
+        extra = ()
+    else:
+        fn = lib.scatter_add_rows_per_warp
+        args += [ctypes.c_int64, ctypes.c_int64]
+        extra = (per_warp, int(vals.dtype == torch.bfloat16))
+    fn.argtypes = args + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     idx = idx.to(torch.int64).contiguous()
     vals = vals.contiguous()
@@ -64,11 +79,10 @@ def _launch_cuda(idx: torch.Tensor, vals: torch.Tensor,
                           device=vals.device)
         stream = torch.cuda.current_stream(vals.device).cuda_stream
         err = fn(idx.data_ptr(), vals.data_ptr(), out.data_ptr(), nu, width,
-                 n_rows, stream)
+                 n_rows, *extra, stream)
     if err != 0:
         raise RuntimeError(f"scatter_add_rows kernel launch failed: "
                            f"cudaError {err}")
-    scatter_add_rows.launches += 1
     return out.to(vals.dtype)
 
 
@@ -79,10 +93,33 @@ def scatter_add_rows(idx: torch.Tensor, vals: torch.Tensor,
     counts kernel launches."""
     _check(idx, vals, n_rows)
     if vals.device.type == "cuda":
-        return _launch_cuda(idx, vals, n_rows)
+        out = _launch_cuda(idx, vals, n_rows)
+        scatter_add_rows.launches += 1
+        return out
+    if vals.device.type == "cpu":
+        return scatter_add_rows_plain(idx, vals, n_rows)
+    raise ValueError(f"unsupported device {vals.device}")
+
+
+def scatter_add_rows_per_warp(idx: torch.Tensor, vals: torch.Tensor,
+                              n_rows: int, per_warp: int) -> torch.Tensor:
+    """`scatter_add_rows` with `per_warp` (8, 16 or 32) consecutive updates
+    walked by each warp: the counterparts of the TPU probe's unroll depths
+    (tools/prof_scatter_bucketed.py `make_serial`). The production entry
+    stays at 8. `scatter_add_rows_per_warp.launches` counts kernel
+    launches."""
+    _check(idx, vals, n_rows)
+    if per_warp not in PER_WARP:
+        raise ValueError(f"per_warp must be one of {PER_WARP}, got "
+                         f"{per_warp}")
+    if vals.device.type == "cuda":
+        out = _launch_cuda(idx, vals, n_rows, per_warp)
+        scatter_add_rows_per_warp.launches += 1
+        return out
     if vals.device.type == "cpu":
         return scatter_add_rows_plain(idx, vals, n_rows)
     raise ValueError(f"unsupported device {vals.device}")
 
 
 scatter_add_rows.launches = 0
+scatter_add_rows_per_warp.launches = 0

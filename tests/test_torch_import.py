@@ -26,7 +26,9 @@ def test_every_module_imports_without_jax():
               "tracking.graph", "tracking.motion_filter",
               "tracking.frontend", "tracking.tracker", "ops.ba_sparse",
               "tracking.dist_cache", "tracking.backend",
-              "tracking.trajectory_filler", "eval.ate"):
+              "tracking.trajectory_filler", "eval.ate",
+              "kernels.scatter_rows_blocked", "kernels.scatter_rows_bucketed",
+              "tools.measure", "tools.prof_corr", "tools.prof_scatter"):
         assert f"mneslam_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"

@@ -12,18 +12,26 @@ of the magnitudes added into it (plus 1e-6); for the correlation windows,
 kernel and plain version each sum C = 128 fp32 products in their own
 order, so they differ by at most 2 * 128 * 2^-24 of the dot of the
 magnitudes (plus 1e-7). Kernel 2b (tensor cores, 3xTF32) against its plain
-version and against kernel 2: MMA_RTOL below, derived there.
+version and against kernel 2: MMA_RTOL below, derived there. The blocked
+and bucketed scatters add into shared memory with atomics, so they take
+the scatter's tolerance; the corr variants with an unrolled pixel loop
+keep every output's FMA sequence and must equal kernel 2 bit for bit.
 """
 
 import pytest
 import torch
 
 from mneslam_tpu_torch.kernels.corr_window import (
-    corr_window, corr_window_multilevel, corr_window_multilevel_mma,
+    UNROLLS, corr_window, corr_window_multilevel, corr_window_multilevel_mma,
     corr_window_multilevel_mma_plain, corr_window_multilevel_plain,
-    corr_window_plain)
+    corr_window_multilevel_unrolled, corr_window_plain)
 from mneslam_tpu_torch.kernels.scatter_add_rows import (
-    scatter_add_rows, scatter_add_rows_plain)
+    scatter_add_rows, scatter_add_rows_per_warp, scatter_add_rows_plain)
+from mneslam_tpu_torch.kernels.scatter_rows_blocked import (
+    scatter_add_rows_blocked, scatter_add_rows_blocked_plain)
+from mneslam_tpu_torch.kernels.scatter_rows_bucketed import (
+    bucket_route, scatter_add_rows_bucketed,
+    scatter_add_rows_bucketed_plain)
 from mneslam_tpu_torch.ops import correlation, interp
 
 pytestmark = pytest.mark.cuda
@@ -93,6 +101,108 @@ def test_scatter_kernel_rejects_bad_inputs(cuda):
                                           dtype=torch.float64), 3)
     with pytest.raises(ValueError):
         scatter_add_rows(idx.cpu(), torch.zeros(4, 8, device=cuda), 3)
+
+
+@pytest.mark.parametrize("per_warp", [16, 32])
+@pytest.mark.parametrize("n_rows,nu,width,dtype", [
+    (201, 64, 128, torch.float32),
+    (77, 50, 30, torch.float32),
+    (10, 0, 128, torch.float32),
+    (301, 128, 128, torch.bfloat16),
+    (160_801, 23_134, 128, torch.float32),
+])
+def test_scatter_per_warp_variants_match_plain(cuda, per_warp, n_rows, nu,
+                                               width, dtype):
+    idx, vals = _inputs(n_rows, nu, width, dtype, torch.int64, cuda)
+    before = scatter_add_rows_per_warp.launches
+    got = scatter_add_rows_per_warp(idx, vals, n_rows, per_warp)
+    assert scatter_add_rows_per_warp.launches == before + 1
+    ref = scatter_add_rows_plain(idx, vals, n_rows)
+    mag = scatter_add_rows_plain(idx, vals.float().abs(), n_rows).float()
+    torch.cuda.synchronize()
+    tol = 5e-5 * mag + 1e-6
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * ref.float().abs()
+    assert got.dtype == dtype and got.shape == (n_rows, width)
+    assert bool(((got.float() - ref.float()).abs() <= tol).all())
+    with pytest.raises(ValueError, match="per_warp"):
+        scatter_add_rows_per_warp(idx, vals, n_rows, 12)
+
+
+def _assert_scatter_close(got, idx, vals, n_rows):
+    ref = scatter_add_rows_plain(idx, vals, n_rows)
+    mag = scatter_add_rows_plain(idx, vals.float().abs(), n_rows).float()
+    torch.cuda.synchronize()
+    assert got.dtype == vals.dtype and got.shape == (n_rows, vals.shape[1])
+    tol = 5e-5 * mag + 1e-6
+    if vals.dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * ref.float().abs()
+    assert bool(((got.float() - ref.float()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("n_rows,nu,width,dtype,idx_dtype,tile", [
+    (201, 64, 128, torch.float32, torch.int64, 64),
+    (1001, 500, 64, torch.float32, torch.int32, 128),   # 1001 % 128 != 0
+    (77, 50, 30, torch.float32, torch.int64, 7),
+    (300, 40, 200, torch.float32, torch.int64, 256),
+    (10, 0, 128, torch.float32, torch.int64, 128),      # nu = 0: all zeros
+    (301, 128, 128, torch.bfloat16, torch.int64, 384),
+    (301, 128, 128, torch.bfloat16, torch.int32, 100),
+    (160_801, 11_567, 128, torch.float32, torch.int32, 384),
+    (160_801, 92_536, 128, torch.bfloat16, torch.int64, 128),
+])
+def test_blocked_and_bucketed_scatters_match_plain(cuda, n_rows, nu, width,
+                                                   dtype, idx_dtype, tile):
+    """Out-of-range indices (dropped), duplicates, a run of one row, tile
+    heights that do not divide n_rows, nu = 0, bf16 values."""
+    idx, vals = _inputs(n_rows, nu, width, dtype, idx_dtype, cuda)
+    b0, k0 = scatter_add_rows_blocked.launches, \
+        scatter_add_rows_bucketed.launches
+    got = scatter_add_rows_blocked(idx, vals, n_rows, tile)
+    _assert_scatter_close(got, idx, vals, n_rows)
+    assert not got[n_rows - 3:].float().any()
+    got = scatter_add_rows_bucketed(idx, vals, n_rows, tile)
+    _assert_scatter_close(got, idx, vals, n_rows)
+    idx_s, vals_s, _ = bucket_route(idx, vals, n_rows, tile)
+    got = scatter_add_rows_bucketed(idx_s, vals_s, n_rows, tile,
+                                    presorted=True)
+    _assert_scatter_close(got, idx, vals, n_rows)
+    assert scatter_add_rows_blocked.launches == b0 + 1
+    assert scatter_add_rows_bucketed.launches == k0 + 2
+    # the plain versions follow the same blocks and agree as well
+    _assert_scatter_close(scatter_add_rows_blocked_plain(idx, vals, n_rows,
+                                                         tile),
+                          idx, vals, n_rows)
+    _assert_scatter_close(scatter_add_rows_bucketed_plain(idx, vals, n_rows,
+                                                          tile),
+                          idx, vals, n_rows)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blocked_and_bucketed_scatters_all_updates_on_one_row(cuda, dtype):
+    idx = torch.full((5000,), 123, dtype=torch.int64, device=cuda)
+    vals = torch.randn((5000, 128), device=cuda).to(dtype)
+    for fn in (scatter_add_rows_blocked, scatter_add_rows_bucketed):
+        _assert_scatter_close(fn(idx, vals, 1000, 128), idx, vals, 1000)
+
+
+def test_blocked_and_bucketed_scatters_reject_bad_inputs(cuda):
+    idx = torch.zeros(4, dtype=torch.int64, device=cuda)
+    vals = torch.zeros(4, 128, device=cuda)
+    for fn in (scatter_add_rows_blocked, scatter_add_rows_bucketed):
+        with pytest.raises(ValueError, match="shared memory"):
+            fn(idx, vals, 1000, 455)            # 455 x 128 x 4 B > 227 KB
+        with pytest.raises(ValueError, match="shared memory"):
+            fn(idx, vals, 1000, 0)
+        with pytest.raises(TypeError):
+            fn(idx, vals.double(), 3)
+        with pytest.raises(TypeError):
+            fn(idx.float(), vals, 3)
+        with pytest.raises(ValueError):
+            fn(idx.cpu(), vals, 3)
+        with pytest.raises(ValueError):
+            fn(idx[:3], vals, 3)
+    assert scatter_add_rows_blocked(idx, vals, 1000, 454).shape == (1000, 128)
 
 
 def test_sampler_backward_on_gpu_matches_cpu(cuda):
@@ -199,6 +309,26 @@ def test_corr_window_mma_matches_plain_and_kernel2(cuda, N, H, W, E,
     assert not got[mask == 0].any()
     if n_masked == 0:
         assert got.abs().max() > 0
+
+
+@pytest.mark.parametrize("N,H,W,E,n_masked", [
+    (26, 40, 80, 91, 16),     # a room0 frontend update: 91 slots, 75 real
+    (3, 13, 21, 4, 1),        # HW not a multiple of the pixel tile
+])
+def test_corr_window_unrolled_equals_kernel2(cuda, N, H, W, E, n_masked):
+    f1, levels, ii, jj, xs, w2ps, mask = _corr_inputs(N, H, W, E, n_masked,
+                                                      cuda)
+    k2 = corr_window_multilevel(f1, levels, ii, jj, xs, w2ps, mask=mask)
+    for u in UNROLLS:
+        before = corr_window_multilevel_unrolled.launches
+        got = corr_window_multilevel_unrolled(f1, levels, ii, jj, xs, w2ps,
+                                              mask=mask, unroll=u)
+        assert corr_window_multilevel_unrolled.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, k2), u
+    with pytest.raises(ValueError, match="unroll"):
+        corr_window_multilevel_unrolled(f1, levels, ii, jj, xs, w2ps,
+                                        unroll=3)
 
 
 def test_corr_window_mma_rejects_bad_inputs(cuda):
