@@ -37,7 +37,11 @@ Phases, each of which must pass (any failure exits non-zero):
      correlation lookup is a launch of kernel 2b and none of kernel 2;
  10. each kernel against its plain PyTorch version at the main path's
      shapes, with times (CUDA events) beside its bound and, where one
-     exists, the one-call PyTorch yardstick;
+     exists, the one-call PyTorch yardstick; the correlation kernels 2,
+     2b and 3 (box design) also timed in turns with their row design of
+     the first port (`*_rows`, checked too) on the frontend's inputs, the
+     same edges with smooth centres, the motion filter's single edge and
+     a 256-edge chunk, each with the share of pixel tiles on the box path;
  11. the TPU probes on the H100 (`mneslam_tpu_torch/tools/prof_corr.py`,
      `prof_scatter.py` in fp32 and bf16): every variant checked against
      its plain version, then timed, with the launch counts set to 0 just
@@ -123,6 +127,7 @@ def card_line() -> str:
 def _wrappers():
     from mneslam_tpu_torch.kernels.corr_window import (
         corr_window, corr_window_multilevel, corr_window_multilevel_mma,
+        corr_window_multilevel_mma_rows, corr_window_multilevel_rows,
         corr_window_multilevel_unrolled)
     from mneslam_tpu_torch.kernels.scatter_add_rows import (
         scatter_add_rows, scatter_add_rows_per_warp)
@@ -137,6 +142,8 @@ def _wrappers():
             "corr_window_per_level": corr_window,
             "scatter_add_rows_per_warp": scatter_add_rows_per_warp,
             "corr_window_unrolled": corr_window_multilevel_unrolled,
+            "corr_window_rows": corr_window_multilevel_rows,
+            "corr_window_mma_rows": corr_window_multilevel_mma_rows,
             "scatter_add_rows_blocked": scatter_add_rows_blocked,
             "scatter_add_rows_bucketed": scatter_add_rows_bucketed}
 
@@ -540,15 +547,17 @@ def branch(before, after) -> str:
             "sparse" if sparse else "chunked" if chunked else "dense")
 
 
-def corr_path_inputs(slam, n_real=75, cap=None, seed=0):
+def corr_path_inputs(slam, n_real=75, cap=None, seed=0, smooth=False):
     """The multi-level kernels' inputs at a path's shapes: the final
     buffer's features, the frontend graph's edges topped up with random
     pairs of live keyframes to n_real real edges in a table of `cap` slots
-    (default the frontend's 91), their reprojected lookup centres."""
+    (default the frontend's 91), their reprojected lookup centres (with
+    `smooth`, `prof_corr.smooth_coords` in their place)."""
     import numpy as np
     import torch
 
     from mneslam_tpu_torch.ops import correlation
+    from mneslam_tpu_torch.tools.prof_corr import smooth_coords
     from mneslam_tpu_torch.tracking import video
 
     st, graph = slam.tracker.state, slam.tracker.frontend.graph
@@ -566,9 +575,13 @@ def corr_path_inputs(slam, n_real=75, cap=None, seed=0):
     mask[:n_real] = 1
     ii_t = torch.as_tensor(ii, device="cuda")
     jj_t = torch.as_tensor(jj, device="cuda")
-    coords, _ = video.reproject(st, graph.intrinsics, ii_t, jj_t)
     pyr = correlation.build_pyramid(st.fmaps)
     N, C, H, W = pyr[0].shape
+    if smooth:
+        coords = torch.as_tensor(smooth_coords(cap, H, W, seed=seed),
+                                 device="cuda")
+    else:
+        coords, _ = video.reproject(st, graph.intrinsics, ii_t, jj_t)
     f1 = pyr[0].permute(0, 2, 3, 1).reshape(N, H * W, C).contiguous()
     levels, w2ps, xs, _ = correlation._padded_levels(pyr, coords, 3)
     return (f1, levels, ii_t.int(), jj_t.int(), xs, w2ps,
@@ -589,6 +602,182 @@ def check_corr(got, ref, mag, mask=None, rtol=CORR_RTOL,
     if mask is not None and bool(got[mask == 0].any()):
         raise SystemExit(f"{what}: non-zeros for masked edges")
     return float(err.max()), ratio
+
+
+def ab_ms(new, old, reps=20):
+    """Two versions timed in turns, old, new, new, old (CUDA events, `reps`
+    calls each after a warm-up); -> (new ms, old ms), each the mean of its
+    two runs."""
+    from mneslam_tpu_torch.tools.measure import cuda_ms
+
+    o1, n1 = cuda_ms(old, reps), cuda_ms(new, reps)
+    n2, o2 = cuda_ms(new, reps), cuda_ms(old, reps)
+    return (n1 + n2) / 2, (o1 + o2) / 2
+
+
+def corr_kernels(slam) -> dict:
+    """Phase 10 (c): kernels 2 and 2b in the box design against their plain
+    versions (2b also against kernel 2), on the path's inputs (`frontend`:
+    the frontend's 91 slots, 75 real, reprojected centres), the same edges
+    with smooth centres (`smooth`), the motion filter's single edge (`e1`)
+    and one 256-edge chunk of a global BA's update (`chunk256`); each timed
+    in turns with its row design of the first port (`*_rows`), which is
+    checked as well; kernel 3, the per-level launch, the same way on the
+    frontend and smooth inputs. Each case reports the bound and the share
+    of (real edge, tile, level) that took the box path (`box_path_share`,
+    by level). -> {kernel: {case: {...}}}."""
+    import torch
+
+    from mneslam_tpu_torch.kernels.corr_window import (
+        box_path_share, corr_window, corr_window_multilevel,
+        corr_window_multilevel_mma, corr_window_multilevel_mma_plain,
+        corr_window_multilevel_mma_rows, corr_window_multilevel_plain,
+        corr_window_multilevel_rows, corr_window_plain)
+    from mneslam_tpu_torch.tools.measure import (TF32_FLOPS, corr_bound_ms,
+                                                 cuda_ms)
+
+    front = corr_path_inputs(slam)
+    f1, levels, ii, jj, xs, w2ps, cmask = front
+    W = slam.tracker.state.fmaps.shape[3]
+    cases = {
+        "frontend": front,
+        "smooth": corr_path_inputs(slam, smooth=True),
+        "e1": (f1[:2].contiguous(), [lv[:2].contiguous() for lv in levels],
+               torch.zeros(1, dtype=torch.int32, device="cuda"),
+               torch.ones(1, dtype=torch.int32, device="cuda"),
+               xs[:1].contiguous(), w2ps,
+               torch.ones(1, dtype=torch.int32, device="cuda")),
+        "chunk256": corr_path_inputs(slam, n_real=256, cap=256),
+    }
+    res = {"corr_window": {}, "corr_window_mma": {},
+           "corr_window_per_level": {}}
+    for case, (f1c, lvc, iic, jjc, xsc, w2c, mc) in cases.items():
+        args = (f1c, lvc, iic, jjc, xsc, w2c)
+        abs_args = (f1c.abs(), [lv.abs() for lv in lvc], iic, jjc, xsc, w2c)
+        share = box_path_share(xsc, [lv.shape[1] for lv in lvc], w2c, W, mc)
+        mag = corr_window_multilevel_plain(*abs_args, mask=mc)
+        ref = corr_window_multilevel_plain(*args, mask=mc)
+        k2 = corr_window_multilevel(*args, W, mask=mc)
+        e2, r2 = check_corr(k2, ref, mag, mc)
+        e2r, r2r = check_corr(corr_window_multilevel_rows(*args, mask=mc),
+                              ref, mag, mc,
+                              what="corr_window_rows vs its plain version")
+        del ref
+        ref_b = corr_window_multilevel_mma_plain(*args, mask=mc)
+        e2b, r2b = check_corr(corr_window_multilevel_mma(*args, W, mask=mc),
+                              ref_b, mag, mc, MMA_RTOL,
+                              "corr_window_mma vs its plain version")
+        e2bk, r2bk = check_corr(corr_window_multilevel_mma(*args, W, mask=mc),
+                                k2, mag, mc, MMA_RTOL,
+                                "corr_window_mma vs corr_window")
+        e2br, r2br = check_corr(corr_window_multilevel_mma_rows(*args,
+                                                                mask=mc),
+                                ref_b, mag, mc, MMA_RTOL,
+                                "corr_window_mma_rows vs its plain version")
+        del ref_b, mag, k2
+        ms2, ms2r = ab_ms(lambda: corr_window_multilevel(*args, W, mask=mc),
+                          lambda: corr_window_multilevel_rows(*args, mask=mc))
+        ms2b, ms2br = ab_ms(
+            lambda: corr_window_multilevel_mma(*args, W, mask=mc),
+            lambda: corr_window_multilevel_mma_rows(*args, mask=mc))
+        slow = case == "chunk256"
+        plain = cuda_ms(lambda: corr_window_multilevel_plain(*args, mask=mc),
+                        reps=2 if slow else 5, warmup=1)
+        plain_b = cuda_ms(
+            lambda: corr_window_multilevel_mma_plain(*args, mask=mc),
+            reps=2, warmup=1)
+        b2, by2, nbytes, flops = corr_bound_ms(*args[:5], mc)
+        b2b, by2b = corr_bound_ms(*args[:5], mc, flops_per_s=TF32_FLOPS)[:2]
+        E, n_real = xsc.shape[0], int(mc.sum())
+        res["corr_window"][case] = {
+            "ms": ms2, "rows_ms": ms2r, "plain_ms": plain, "bound_ms": b2,
+            "bound_by": by2, "box_share": share,
+            "max_abs_err": max(e2, e2r), "err_ratio": r2,
+            "rows_err_ratio": r2r, "edges": E, "real": n_real}
+        res["corr_window_mma"][case] = {
+            "ms": ms2b, "rows_ms": ms2br, "plain_ms": plain_b,
+            "bound_ms": b2b, "bound_by": by2b, "box_share": share,
+            "max_abs_err": max(e2b, e2bk, e2br),
+            "err_ratio": max(r2b, r2bk), "rows_err_ratio": r2br,
+            "edges": E, "real": n_real}
+        log(f"corr {case}: E {E} ({n_real} real) HW {xsc.shape[1]} C "
+            f"{f1c.shape[2]} 4 levels, box path share by level "
+            f"{[round(v, 4) for v in share]}; kernel 2 box {ms2:.4f} ms, "
+            f"row design {ms2r:.4f} ms, plain {plain:.4f} ms, bound "
+            f"{b2:.4f} ms by {by2} ({flops} flops at 67 TFLOP/s fp32, "
+            f"{nbytes} bytes at 3.35 TB/s), err / tolerance {r2:.3f} "
+            f"(rows {r2r:.3f}); kernel 2b box {ms2b:.4f} ms, row design "
+            f"{ms2br:.4f} ms, plain {plain_b:.4f} ms, bound {b2b:.4f} ms by "
+            f"{by2b} (TF32 rate), err / tolerance vs plain {r2b:.3f}, vs "
+            f"kernel 2 {r2bk:.3f} (rows {r2br:.3f}); tolerances "
+            f"{CORR_RTOL:.3g} / {MMA_RTOL:.3g} x dot of magnitudes + "
+            f"{CORR_ATOL:g}; no one PyTorch call computes it")
+
+        if case not in ("frontend", "smooth"):
+            continue
+        # kernel 3: each level of all the slots (no mask) in its own launch;
+        # its row design is the row entry launched with that one level
+        p_ms = p_rows = p_plain = p_err = p_ratio = 0.0
+        for lvl in range(len(lvc)):
+            xl = xsc[..., lvl].contiguous()
+            a3 = (f1c, lvc[lvl], iic, jjc, xl, w2c[lvl])
+            e, r = check_corr(corr_window(*a3, W), corr_window_plain(*a3),
+                              corr_window_plain(f1c.abs(), lvc[lvl].abs(),
+                                                iic, jjc, xl, w2c[lvl]))
+            p_err, p_ratio = max(p_err, e), max(p_ratio, r)
+            x1 = xl[..., None]
+            new, old = ab_ms(lambda: corr_window(*a3, W),
+                             lambda: corr_window_multilevel_rows(
+                                 f1c, [lvc[lvl]], iic, jjc, x1, [w2c[lvl]]))
+            p_ms, p_rows = p_ms + new, p_rows + old
+            if case == "frontend":
+                p_plain += cuda_ms(lambda: corr_window_plain(*a3), reps=5,
+                                   warmup=1)
+        p_bound, p_by = corr_bound_ms(*args[:5], torch.ones_like(mc))[:2]
+        res["corr_window_per_level"][case] = {
+            "ms": p_ms, "rows_ms": p_rows,
+            "plain_ms": p_plain if case == "frontend" else None,
+            "bound_ms": p_bound, "bound_by": p_by,
+            "box_share": box_path_share(
+                xsc, [lv.shape[1] for lv in lvc], w2c, W),
+            "max_abs_err": p_err, "err_ratio": p_ratio}
+        log(f"corr {case}, kernel 3 (one level per launch, all {E} slots "
+            f"computed): four levels box {p_ms:.4f} ms, row design "
+            f"{p_rows:.4f} ms, plain {p_plain:.4f} ms, bound {p_bound:.4f} "
+            f"ms by {p_by}, err / tolerance {p_ratio:.3f}")
+    return res
+
+
+def corr_entry(corr, name, key, source, line, launches, by_path, rtol,
+               rows=False, **extra) -> dict:
+    """A correlation kernel's entry of the kernels' JSON line from
+    `corr_kernels`' results `corr[key]`: its times on the path's inputs
+    (`frontend`; for kernel 3 its four levels) beside the other design's
+    in the same call, then every other case. `rows`: the entry of the
+    row design of the first port (`*_rows`; on no main path since the box
+    design replaced it, so its launches are the probe phase's)."""
+    res = corr[key]
+    ours, other = ("rows_ms", "ms") if rows else ("ms", "rows_ms")
+    front = res["frontend"]
+    return {
+        "name": name, "route": "cuda",
+        "source": f"mneslam_tpu_torch/kernels/csrc/{source}",
+        "replaces": f"mneslam_tpu/ops/pallas_kernels.py{line}",
+        "launches": launches, "launches_by_path": by_path,
+        "design": "rows (first port)" if rows else "box",
+        "max_abs_err": max(v["max_abs_err"] for v in res.values()),
+        "tolerance": f"{rtol:.3g} x dot of |f1|, |f2| + {CORR_ATOL:g}",
+        "ms": front[ours], "plain_ms": front["plain_ms"],
+        "bound_ms": front["bound_ms"], "bound_by": front["bound_by"],
+        "library_ms": None,
+        "other_design_ms": front[other],
+        "box_share": front["box_share"],
+        "timed_as": "the frontend lookup's inputs (91 edge slots, 75 real, "
+                    "reprojected centres), 4 levels"
+                    + (" launched one by one, all slots computed"
+                       if key == "corr_window_per_level" else ""),
+        "cases": res,
+        **extra}
 
 
 def tpu_probes(real, card) -> dict:
@@ -620,9 +809,10 @@ def tpu_probes(real, card) -> dict:
     if failed:
         raise SystemExit(f"probe variants wrong or failing: {failed}")
     unequal = [k for k, v in corr.items()
-               if isinstance(v, dict) and v.get("equal_to_kernel2") is False]
-    log(f"corr unroll variants equal to kernel 2 bit for bit: "
-        f"{not unequal} (unequal: {unequal})")
+               if isinstance(v, dict) and v.get("equal_to_rows") is False]
+    log(f"corr unroll variants equal to the row design's entry bit for bit: "
+        f"{not unequal} (unequal: {unequal}); box path share by level "
+        f"{corr['box_share']}")
 
     def real_sum(variant, key="ms"):
         """A variant's `key` summed over the real stream's calls."""
@@ -675,9 +865,14 @@ def tpu_probes(real, card) -> dict:
             "probe_ms": real_sum("kernel1")},
         "corr_window": {
             "probe_ms": corr["kernel2+skip"]["ms"],
+            "probe_rows_ms": corr["kernel2rows+skip"]["ms"],
+            "probe_box_share": corr["box_share"],
             "unroll_ms": {u: corr[f"kernel2+skip u{u}"]["ms"]
                           for u in prof_corr.UNROLLS},
-            "unroll_equal_to_kernel2": not unequal},
+            "unroll_equal_to_rows": not unequal},
+        "corr_window_mma": {
+            "probe_ms": corr["kernel2b+skip"]["ms"],
+            "probe_rows_ms": corr["kernel2brows+skip"]["ms"]},
         "scatter_add_rows_blocked": entry(
             "scatter_add_rows_blocked", "scatter_rows_blocked.cu",
             "tools/prof_pallas_scatter.py:61", "blocked", "blocked_plain",
@@ -700,7 +895,6 @@ def main():
     from mneslam_tpu_torch.kernels.scatter_add_rows import (
         scatter_add_rows, scatter_add_rows_plain)
     from mneslam_tpu_torch.tools.measure import (FP32_FLOPS, HBM_BYTES_PER_S,
-                                                 TF32_FLOPS, corr_bound_ms,
                                                  cuda_ms)
     from mneslam_tpu_torch.tools.prof_corr import corr_impl
 
@@ -1071,111 +1265,9 @@ def main():
         f"index_add_ {totals['library_ms']:.4f} ms, bound "
         f"{1e3 * bound_ms:.1f} us ({totals['bytes']} bytes)")
 
-    # (c) corr_window (kernels 2 and 3) at the frontend's shapes: 91 edge
-    #     slots, 75 real; then the motion filter's single edge
-    from mneslam_tpu_torch.kernels.corr_window import (
-        corr_window, corr_window_multilevel, corr_window_multilevel_mma,
-        corr_window_multilevel_mma_plain, corr_window_multilevel_plain,
-        corr_window_plain)
-
-    f1, levels, ii, jj, xs, w2ps, cmask = corr_path_inputs(slam_s)
-    f1_abs, levels_abs = f1.abs(), [lv.abs() for lv in levels]
-    got = corr_window_multilevel(f1, levels, ii, jj, xs, w2ps, mask=cmask)
-    ref = corr_window_multilevel_plain(f1, levels, ii, jj, xs, w2ps,
-                                       mask=cmask)
-    mag = corr_window_multilevel_plain(f1_abs, levels_abs, ii, jj, xs, w2ps,
-                                       mask=cmask)
-    c_err, c_ratio = check_corr(got, ref, mag, cmask)
-    c_ms = cuda_ms(lambda: corr_window_multilevel(f1, levels, ii, jj, xs,
-                                                  w2ps, mask=cmask))
-    c_plain = cuda_ms(lambda: corr_window_multilevel_plain(
-        f1, levels, ii, jj, xs, w2ps, mask=cmask), reps=5, warmup=1)
-    c_bound, c_by, c_bytes, c_flops = corr_bound_ms(f1, levels, ii, jj, xs,
-                                                    cmask)
-    E, HW = xs.shape[:2]
-    log(f"corr_window (kernel 2) E {E} ({int(cmask.sum())} real) HW {HW} "
-        f"C {f1.shape[2]} 4 levels: kernel {c_ms:.4f} ms, plain "
-        f"{c_plain:.4f} ms, bound {c_bound:.4f} ms by {c_by} ({c_flops} "
-        f"flops at 67 TFLOP/s fp32, {c_bytes} bytes at 3.35 TB/s), max abs "
-        f"err {c_err:.3e}, err / tolerance {c_ratio:.3f} (tolerance "
-        f"{CORR_RTOL:.3g} x dot of magnitudes + {CORR_ATOL:g}: both sum 128 "
-        f"fp32 products, in other orders); no one PyTorch call computes it")
-
-    # the motion filter's lookup: one edge between two frames
-    m_args = (f1[:2].contiguous(), [lv[:2].contiguous() for lv in levels],
-              torch.zeros(1, dtype=torch.int32, device="cuda"),
-              torch.ones(1, dtype=torch.int32, device="cuda"),
-              xs[:1].contiguous(), w2ps)
-    m_abs = (m_args[0].abs(), [lv.abs() for lv in m_args[1]], *m_args[2:])
-    m_err, m_ratio = check_corr(corr_window_multilevel(*m_args),
-                                corr_window_multilevel_plain(*m_args),
-                                corr_window_multilevel_plain(*m_abs))
-    m_ms = cuda_ms(lambda: corr_window_multilevel(*m_args))
-    m_plain = cuda_ms(lambda: corr_window_multilevel_plain(*m_args))
-    m_bound = corr_bound_ms(m_args[0], m_args[1], m_args[2], m_args[3],
-                            m_args[4], torch.ones(1, device="cuda"))[0]
-    log(f"corr_window (kernel 2) E 1: kernel {m_ms:.4f} ms, plain "
-        f"{m_plain:.4f} ms, bound {m_bound:.4f} ms, max abs err "
-        f"{m_err:.3e}, err / tolerance {m_ratio:.3f}")
-
-    # kernel 3: the per-level entry, each level of the same 91 edges (all
-    # computed: no mask), bound as the four levels' work at once
-    p_ms = p_plain = 0.0
-    p_err = 0.0
-    for lvl in range(len(levels)):
-        xl = xs[..., lvl].contiguous()
-        args = (f1, levels[lvl], ii, jj, xl, w2ps[lvl])
-        e, r = check_corr(corr_window(*args), corr_window_plain(*args),
-                          corr_window_plain(f1_abs, levels_abs[lvl], ii, jj,
-                                            xl, w2ps[lvl]))
-        p_err = max(p_err, e)
-        p_ms += cuda_ms(lambda: corr_window(*args))
-        p_plain += cuda_ms(lambda: corr_window_plain(*args), reps=5,
-                           warmup=1)
-    p_bound, p_by, _, _ = corr_bound_ms(f1, levels, ii, jj, xs,
-                                        torch.ones_like(cmask))
-    log(f"corr_window (kernel 3, one level per launch) E {E} (all computed)"
-        f": four levels {p_ms:.4f} ms, plain {p_plain:.4f} ms, bound "
-        f"{p_bound:.4f} ms by {p_by}, max abs err {p_err:.3e}")
-    del got, ref, mag
-
-    # (d) corr_window_mma (kernel 2b) at the frontend's shapes and at one
-    #     256-edge chunk of a global BA's update, against its plain version
-    #     and against kernel 2; kernel 2 timed beside it in the same call
-    mma = {}
-    for label, n_real, cap in (("frontend", 75, None),
-                               ("global_chunk", 256, 256)):
-        a = corr_path_inputs(slam_s, n_real=n_real, cap=cap)
-        fb, lvb, iib, jjb, xsb, w2b, mb = a
-        a_abs = (fb.abs(), [lv.abs() for lv in lvb], iib, jjb, xsb, w2b)
-        got = corr_window_multilevel_mma(*a[:6], mask=mb)
-        mag = corr_window_multilevel_plain(*a_abs, mask=mb)
-        e_p, r_p = check_corr(got, corr_window_multilevel_mma_plain(
-            *a[:6], mask=mb), mag, mb, MMA_RTOL,
-            "corr_window_mma vs its plain version")
-        e_k, r_k = check_corr(got, corr_window_multilevel(*a[:6], mask=mb),
-                              mag, mb, MMA_RTOL,
-                              "corr_window_mma vs corr_window")
-        del got, mag
-        k2b_ms = cuda_ms(lambda: corr_window_multilevel_mma(*a[:6], mask=mb))
-        k2_ms = cuda_ms(lambda: corr_window_multilevel(*a[:6], mask=mb))
-        plain_ms = cuda_ms(lambda: corr_window_multilevel_mma_plain(
-            *a[:6], mask=mb), reps=2, warmup=1)
-        bound, by, nbytes, flops = corr_bound_ms(fb, lvb, iib, jjb, xsb, mb,
-                                                 flops_per_s=TF32_FLOPS)
-        mma[label] = {"ms": k2b_ms, "kernel2_ms": k2_ms, "plain_ms": plain_ms,
-                      "bound_ms": bound, "bound_by": by,
-                      "max_abs_err": max(e_p, e_k),
-                      "err_ratio": max(r_p, r_k)}
-        log(f"corr_window_mma (kernel 2b, tensor cores, 3xTF32) {label}: E "
-            f"{xsb.shape[0]} ({n_real} real): kernel {k2b_ms:.4f} ms, kernel "
-            f"2 in the same call {k2_ms:.4f} ms, plain (block form) "
-            f"{plain_ms:.4f} ms, bound {bound:.4f} ms by {by} ({flops} "
-            f"useful flops at 495 TFLOP/s TF32, {nbytes} bytes at 3.35 TB/s;"
-            f" the kernel issues 24 x the useful flops: 8-wide mma x 3 "
-            f"passes), max abs err {max(e_p, e_k):.3e}, err / tolerance vs "
-            f"plain {r_p:.3f}, vs kernel 2 {r_k:.3f} (tolerance "
-            f"{MMA_RTOL:.3g} x dot of magnitudes + {CORR_ATOL:g})")
+    # (c) kernels 2, 2b and 3 (box design) against their plain versions,
+    #     timed in turns with their row design of the first port
+    corr = corr_kernels(slam_s)
 
     # 11. the TPU probes on the H100, with the counts set to 0 just before
     #     and read just after
@@ -1216,78 +1308,43 @@ def main():
         "iter_ms": iter_ms,
         "iter_device_ms": device_ms,
         "keyframe_ms": kf_ms,
-    }, {
-        "name": "corr_window",
-        "route": "cuda",
-        "source": "mneslam_tpu_torch/kernels/csrc/corr_window.cu",
-        "replaces": "mneslam_tpu/ops/pallas_kernels.py:176",
-        "launches": slaunches["corr_window"],
-        "launches_by_path": {"slam": slaunches["corr_window"],
-                             "oracle_backend": b_launches["corr_window"],
-                             "mapping": 0},
-        "max_abs_err": max(c_err, m_err),
-        "tolerance": f"{CORR_RTOL:.3g} x dot of |f1|, |f2| + {CORR_ATOL:g}",
-        "ms": c_ms,
-        "plain_ms": c_plain,
-        "bound_ms": c_bound,
-        "bound_by": c_by,
-        "library_ms": None,
-        "timed_as": f"one frontend lookup: {E} edge slots, "
-                    f"{int(cmask.sum())} real, 4 levels",
-        "e1_ms": m_ms, "e1_plain_ms": m_plain, "e1_bound_ms": m_bound,
-        **probes["corr_window"],
-        "probe_launches": probe_launches["corr_window"]
-        + probe_launches["corr_window_unrolled"],
-        "global_chunk_ms": mma["global_chunk"]["kernel2_ms"],
-        "frontend_update_ms": upd_ms,
-        "frontend_update_device_ms": upd_dev_ms,
-        "tracked_frame_ms_before_window": pre_ms,
-        "tracked_frame_ms_after_window": post_ms,
-        "loop_ba_ms": loop_ms,
-        "global_ba_ms": global_ms,
-        "global_ba_step_profile": {"wall_ms": gba_ms,
-                                   "device_ms": gba_dev_ms},
-        "filler_s": fill_s,
-        "filler_stage_s": fill_stage_s,
-        "render_frames_s": render_s,
-    }, {
-        "name": "corr_window_mma",
-        "route": "cuda",
-        "source": "mneslam_tpu_torch/kernels/csrc/corr_window_mma.cu",
-        "replaces": "mneslam_tpu/ops/pallas_kernels.py:114",
-        "launches": mlaunches["corr_window_mma"],
-        "launches_by_path": {"slam_pallas_mxu":
-                             mlaunches["corr_window_mma"]},
-        "max_abs_err": max(v["max_abs_err"] for v in mma.values()),
-        "tolerance": f"{MMA_RTOL:.3g} x dot of |f1|, |f2| + {CORR_ATOL:g}",
-        "ms": mma["frontend"]["ms"],
-        "plain_ms": mma["frontend"]["plain_ms"],
-        "bound_ms": mma["frontend"]["bound_ms"],
-        "bound_by": mma["frontend"]["bound_by"],
-        "library_ms": None,
-        "timed_as": f"one frontend lookup: {E} edge slots, 75 real, 4 "
-                    f"levels; bound: the useful flops at the TF32 "
-                    f"tensor-core rate",
-        "kernel2_ms_same_call": mma["frontend"]["kernel2_ms"],
-        "global_chunk": mma["global_chunk"],
-    }, {
-        "name": "corr_window_per_level",
-        "route": "cuda",
-        "source": "mneslam_tpu_torch/kernels/csrc/corr_window.cu",
-        "replaces": "mneslam_tpu/ops/pallas_kernels.py:241",
-        "launches": o_launches["corr_window_per_level"],
-        "launches_by_path": {"oracle_pallas_per_level":
-                             o_launches["corr_window_per_level"]},
-        "max_abs_err": p_err,
-        "tolerance": f"{CORR_RTOL:.3g} x dot of |f1|, |f2| + {CORR_ATOL:g}",
-        "ms": p_ms,
-        "plain_ms": p_plain,
-        "bound_ms": p_bound,
-        "bound_by": p_by,
-        "library_ms": None,
-        "timed_as": f"the four levels launched one by one over {E} edge "
-                    f"slots, all computed",
-    }, probes["scatter_add_rows_blocked"],
+    }, corr_entry(
+        corr, "corr_window", "corr_window", "corr_window.cu", ":176",
+        slaunches["corr_window"],
+        {"slam": slaunches["corr_window"],
+         "oracle_backend": b_launches["corr_window"], "mapping": 0},
+        CORR_RTOL, **probes["corr_window"],
+        probe_launches=probe_launches["corr_window"],
+        frontend_update_ms=upd_ms, frontend_update_device_ms=upd_dev_ms,
+        tracked_frame_ms_before_window=pre_ms,
+        tracked_frame_ms_after_window=post_ms, loop_ba_ms=loop_ms,
+        global_ba_ms=global_ms,
+        global_ba_step_profile={"wall_ms": gba_ms, "device_ms": gba_dev_ms},
+        filler_s=fill_s, filler_stage_s=fill_stage_s,
+        render_frames_s=render_s),
+        corr_entry(
+        corr, "corr_window_mma", "corr_window_mma", "corr_window_mma.cu",
+        ":114", mlaunches["corr_window_mma"],
+        {"slam_pallas_mxu": mlaunches["corr_window_mma"]}, MMA_RTOL,
+        **probes["corr_window_mma"],
+        probe_launches=probe_launches["corr_window_mma"]),
+        corr_entry(
+        corr, "corr_window_per_level", "corr_window_per_level",
+        "corr_window.cu", ":241", o_launches["corr_window_per_level"],
+        {"oracle_pallas_per_level": o_launches["corr_window_per_level"]},
+        CORR_RTOL),
+        corr_entry(
+        corr, "corr_window_rows", "corr_window", "corr_window.cu", ":176",
+        probe_launches["corr_window_rows"],
+        {"probes": probe_launches["corr_window_rows"],
+         "unrolled_probes": probe_launches["corr_window_unrolled"]},
+        CORR_RTOL, rows=True),
+        corr_entry(
+        corr, "corr_window_mma_rows", "corr_window_mma", "corr_window_mma.cu",
+        ":114", probe_launches["corr_window_mma_rows"],
+        {"probes": probe_launches["corr_window_mma_rows"]}, MMA_RTOL,
+        rows=True),
+        probes["scatter_add_rows_blocked"],
         probes["scatter_add_rows_bucketed"]]
     idle = [k["name"] for k in kernels if not k["launches"] >= 1]
     if idle:

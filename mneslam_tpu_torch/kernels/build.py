@@ -2,9 +2,10 @@
 
 Each `csrc/<name>.cu` compiles on its own into `_build/lib<name>-<hash>.so`
 (a plain C interface; no PyTorch headers, so a build takes seconds), where
-the hash covers the source text and the flags, so an edited source never
-loads a stale library. `build_all()` starts one nvcc per source at once and
-waits for all of them. Nothing is built at import time: a wrapper calls
+the hash covers the source text, the shared headers `csrc/*.cuh` and the
+flags, so an edited source or header never loads a stale library.
+`build_all()` starts one nvcc per source at once and waits for all of
+them. Nothing is built at import time: a wrapper calls
 `load(name)` the first time it launches on a CUDA tensor.
 """
 
@@ -39,10 +40,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
+    """The library's path; its hash covers the source, every shared header
+    in csrc/ (`*.cuh`) and the flags."""
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 

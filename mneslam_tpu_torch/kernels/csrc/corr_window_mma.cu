@@ -3,8 +3,9 @@
 //   out[e, p, l, j*8 + i] = dot(f1[ii[e], p, :], f2_l[jj[e], xs[e, p, l] + j*w2p_l + i, :])
 //
 // the same function as `corr_window.cu` (same arguments, same j-major
-// [E, HW, L, 64] fp32 output, zeros for an edge with mask[e] == 0), with the
-// dots taken by `mma.sync` TF32 tensor-core instructions.
+// [E, HW, L, 64] fp32 output, zeros for an edge with mask[e] == 0, each
+// window row's start clamped to [0, R_l - 8]), with the dots taken by
+// `mma.sync` TF32 tensor-core instructions.
 //
 // Replaces the Pallas kernel `_corr_window_kernel_ml_mxu`
 // (mneslam_tpu/ops/pallas_kernels.py:114, reached through
@@ -13,52 +14,77 @@
 // VMEM-resident padded level as S [U*64, C], multiplies S @ f1_block^T on
 // the MXU and keeps each pixel's own column. Hopper holds neither a padded
 // level (2.9 MB at level 0) nor 16 pixels' window rows (512 KB) in a
-// block's 227 KB of shared memory, so here the A fragments come straight
-// from L1 / L2 and only the f1 operand stays resident, in registers.
+// block's 227 KB of shared memory.
 //
-// Design: one warp per (edge, group of 8 pixels, level); a block holds the
-// L level-warps of one pixel group. mma.sync.m16n8k8 takes A = 16 window
-// rows (two window rows j of one pixel, 8 entries i each) by 8 channels and
-// B = those 8 channels of the 8 pixels' f1 (the N = 8 minimum width of
-// mma.sync), so each product computes 8 pixels' dots of which the warp
-// keeps the one column that belongs to the pixel of the window: 8-fold
-// redundant work, as the TPU kernel's 16-fold. The K order is permuted so
-// that each lane loads 4 consecutive channels of a row as one float4 (two
-// k-steps), the same permutation on A and B; a sum over K does not depend on
-// the order. B, the 8 pixels' f1 split into a TF32 high and low part, stays
-// in registers for the whole warp (C / 2 registers).
+// Two designs, two entries.
+//
+// `corr_window_mma` (the box design, corr_box.cuh): one block of four
+// warps per (edge, 4 x 4 pixel tile), walking the levels inside. The block
+// stages the box of its pixels' windows of every level in shared memory,
+// one stream of cp.async chunks of 32 channels through two buffers
+// (corr_box.cuh), and multiplies on the tensor cores with
+// mma.sync.m16n8k8: M = the tile's 16 pixels (A: their f1 rows, resident
+// in shared memory as TF32 high and low parts), N = 8 box rows at a time
+// (B, from the staged chunk, split as it is read; warp w takes the n-tiles
+// w, w + 4, ...), K = C. Every product computes dots that the tile uses,
+// up to the box's redundancy, in place of the row design's 8-fold waste.
+// The dots go to shared memory and each pixel's 64 window entries are
+// picked from them. A tile whose box does not fit computes that level with
+// the row design below, inside the same kernel (warp w: pixels 8 (w / 2)
+// .. + 7 of the tile, window rows 4 (w % 2) .. + 3). The box product splits
+// its operands with integer operations (`split_bits`, the same rounding as
+// `cvt.rna.tf32.f32`, which the compiler expands into a longer sequence).
+//
+// `corr_window_mma_rows` (the design of the first port): one warp per
+// (edge, group of 8 consecutive pixels, level). A = 16 window rows (two
+// window rows j of one pixel, 8 entries i each) straight from L1 / L2 by 8
+// channels, B = those 8 channels of the 8 pixels' f1 (the N = 8 minimum of
+// mma.sync), held in registers, so each product computes 8 pixels' dots of
+// which the warp keeps one column: 8-fold redundant work. The K order is
+// permuted so that each lane loads 4 consecutive channels of a row as one
+// float4 (two k-steps), the same permutation on A and B.
 //
 // Precision: the repository keeps correlation in true fp32, so each product
 // is 3xTF32: x = hi + lo with hi = tf32(x), lo = tf32(x - hi); the
 // accumulator gets a_lo*b_hi + a_hi*b_lo + a_hi*b_hi (the lo*lo term, at
 // 2^-22 of the product, is dropped), summed in fp32 by the tensor core.
 //
-// Bound on the card: the useful work is the same as kernel 2's (2 C flops
-// per output); at the 8-fold redundancy and 3 passes the tensor cores do 24
-// times that, which at the TF32 rate (495 TFLOP/s) is about 3x kernel 2's
-// fp32 bound. Like kernel 2 it reads each f2 row once per output that uses
-// it (512 B per 64 outputs) from L1 / L2, so it is bound by the load path
-// first; reusing window rows across neighbouring pixels (TMA into shared
-// memory, wgmma) is the work of the PR that makes kernels 2 / 2b fast.
+// Bound on the card: the useful work is kernel 2's (2 C flops per output)
+// at the TF32 rate (495 TFLOP/s), so the bytes (output, f1 and the f2
+// frames once) bound it. The row design reads each f2 row once per output
+// that uses it (about 31 GB per frontend lookup from L1 / L2) and issues 24
+// times the useful flops; the box design reads each box row once per tile
+// and level (about 2.7 GB from L2 for smooth centres) and issues 3 times
+// the box's dots. As for kernel 2, the latency of the chunk copies bounds
+// it now, not the mma.sync issue rate: its box path takes about as long as
+// kernel 2's fp32 product on the same input (PERF.md), so `wgmma` would not
+// pay before the staging does.
 //
 // Interface: plain C, for ctypes, as corr_window.cu. The caller owns every
 // buffer, passes PyTorch's current stream, and gets cudaGetLastError() back.
-// Slab starts are clamped so that no read leaves its frame.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "corr_box.cuh"
+
 namespace {
 
-constexpr int kNx = 8;          // window side: 2 * radius + 2, radius 3
-constexpr int kPix = 8;         // pixels per warp: the mma's N
-constexpr int kMaxLevels = 4;
+using corr_box::Box;
+using corr_box::kBoxRows;
+using corr_box::kBufFloats;
+using corr_box::kChunk;
+using corr_box::kChunkStride;
+using corr_box::kDStride;
+using corr_box::kMaxLevels;
+using corr_box::kNx;
+using corr_box::kThreads;
+using corr_box::kTilePix;
+using corr_box::Levels;
+using corr_box::make_levels;
 
-struct Levels {
-  const float* f2[kMaxLevels];
-  int64_t rows[kMaxLevels];     // padded rows per frame, H2p * w2p
-  int64_t w2p[kMaxLevels];      // padded row width
-};
+constexpr int kPix = 8;         // pixels per warp of the row design: the mma's N
+constexpr int kNTiles = kBoxRows / 8 / 4;   // n-tiles per warp of the box design
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
@@ -70,6 +96,19 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   hi = to_tf32(x);
   lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// split() in integer ALU operations, for the box product's operands: the
+// same rounding as cvt.rna.tf32.f32 (to nearest, ties away from zero: add
+// half a TF32 ulp to the magnitude's bits, clear the 13 bits below)
+__device__ __forceinline__ uint32_t tf32_bits(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_bits(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_bits(x);
+  lo = tf32_bits(x - __uint_as_float(hi));
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
@@ -98,41 +137,31 @@ __device__ __forceinline__ void step3(float (&d)[4], float r0a, float r0b,
   mma_tf32(d, ah, bh0, bh1);
 }
 
-template <int C>
-__global__ void __launch_bounds__(32 * kMaxLevels)
-corr_window_mma_kernel(const float* __restrict__ f1, const Levels lv,
-                       const int* __restrict__ ii, const int* __restrict__ jj,
-                       const int* __restrict__ mask,
-                       const int* __restrict__ xs, float* __restrict__ out,
-                       int hw, int n_levels) {
+// The row design's work for one warp: 8 pixels (pixel(u) -> index into the
+// H x W grid, or -1 for none), window-row pairs t in [t0, t1), one level.
+// f1_e: frame ii[e]'s rows; f2: frame jj[e]'s padded level; xs_e: this
+// edge's [HW, L] slab starts; out_e: this edge's outputs.
+template <int C, class Pixel>
+__device__ __forceinline__ void rows_mma(const float* __restrict__ f1_e,
+                                         const float* __restrict__ f2,
+                                         const int* __restrict__ xs_e,
+                                         float* __restrict__ out_e,
+                                         int64_t rows, int64_t w2p, int l,
+                                         int n_levels, int t0, int t1,
+                                         int lane, Pixel pixel) {
   constexpr int kM = C / 16;                  // float4 k-pairs per row
-  const int e = blockIdx.y;
-  const int p0 = blockIdx.x * kPix;
-  const int l = threadIdx.x / 32;             // one warp per level
-  const int lane = threadIdx.x % 32;
   const int g = lane / 4;                     // mma groupID
   const int q = lane % 4;                     // mma threadID_in_group
   const int per_pixel = n_levels * kNx * kNx;
-  float* out_e = out + (int64_t)e * hw * per_pixel;
-
-  if (mask[e] == 0) {
-    for (int k = lane; k < kPix * kNx * kNx; k += 32) {
-      const int p = p0 + k / (kNx * kNx);
-      if (p < hw) {
-        out_e[(int64_t)p * per_pixel + l * kNx * kNx + k % (kNx * kNx)] = 0.f;
-      }
-    }
-    return;
-  }
 
   // B fragments: b0 = (k q, n g), b1 = (k q+4, n g), n = pixel g of the
   // group. k-step 2m+h, k-column kk <-> channel 16m + 4(kk&3) + 2h + (kk>>2),
   // so lane (g, q) holds channels 16m + 4q + {0..3} of pixel g.
   uint32_t bh[kM][4], bl[kM][4];
   {
-    const int pg = min(p0 + g, hw - 1);
-    const float4* f1p =
-        reinterpret_cast<const float4*>(f1 + ((int64_t)ii[e] * hw + pg) * C);
+    // a column past the ragged edge reads pixel 0 (it is never stored)
+    const int pg = pixel(g) >= 0 ? pixel(g) : 0;
+    const float4* f1p = reinterpret_cast<const float4*>(f1_e + (int64_t)pg * C);
 #pragma unroll
     for (int m = 0; m < kM; ++m) {
       const float4 v = __ldg(f1p + 4 * m + q);
@@ -143,16 +172,11 @@ corr_window_mma_kernel(const float* __restrict__ f1, const Levels lv,
     }
   }
 
-  const int64_t rows = lv.rows[l];
-  const int64_t w2p = lv.w2p[l];
-  const float* f2 = lv.f2[l] + (int64_t)jj[e] * rows * C;
-
   for (int u = 0; u < kPix; ++u) {
-    const int p = p0 + u;
-    if (p >= hw) break;                         // warp-uniform
-    const int64_t x0 = xs[((int64_t)e * hw + p) * n_levels + l];
-#pragma unroll 1
-    for (int t = 0; t < kNx / 2; ++t) {         // m-tile: window rows 2t, 2t+1
+    const int p = pixel(u);
+    if (p < 0) continue;                        // warp-uniform
+    const int64_t x0 = xs_e[(int64_t)p * n_levels + l];
+    for (int t = t0; t < t1; ++t) {             // m-tile: window rows 2t, 2t+1
       int64_t b0 = x0 + (2 * t) * w2p;
       int64_t b1 = b0 + w2p;
       b0 = b0 < 0 ? 0 : (b0 > rows - kNx ? rows - kNx : b0);
@@ -182,38 +206,203 @@ corr_window_mma_kernel(const float* __restrict__ f1, const Levels lv,
   }
 }
 
+// ---- the row design (`corr_window_mma_rows`) ----------------------------
+
 template <int C>
-int launch(const float* f1, const Levels& lv, const int* ii, const int* jj,
-           const int* mask, const int* xs, float* out, int64_t n_edges,
-           int64_t hw, int64_t n_levels, cudaStream_t stream) {
-  const dim3 grid((unsigned int)((hw + kPix - 1) / kPix),
-                  (unsigned int)n_edges);
-  corr_window_mma_kernel<C><<<grid, 32 * (int)n_levels, 0, stream>>>(
-      f1, lv, ii, jj, mask, xs, out, (int)hw, (int)n_levels);
-  return 0;
+__global__ void __launch_bounds__(32 * kMaxLevels)
+corr_window_mma_rows_kernel(const float* __restrict__ f1, const Levels lv,
+                            const int* __restrict__ ii,
+                            const int* __restrict__ jj,
+                            const int* __restrict__ mask,
+                            const int* __restrict__ xs,
+                            float* __restrict__ out, int hw, int n_levels) {
+  const int e = blockIdx.y;
+  const int p0 = blockIdx.x * kPix;
+  const int l = threadIdx.x / 32;             // one warp per level
+  const int lane = threadIdx.x % 32;
+  const int per_pixel = n_levels * kNx * kNx;
+  float* out_e = out + (int64_t)e * hw * per_pixel;
+
+  if (mask[e] == 0) {
+    for (int k = lane; k < kPix * kNx * kNx; k += 32) {
+      const int p = p0 + k / (kNx * kNx);
+      if (p < hw) {
+        out_e[(int64_t)p * per_pixel + l * kNx * kNx + k % (kNx * kNx)] = 0.f;
+      }
+    }
+    return;
+  }
+
+  const int64_t rows = lv.rows[l];
+  rows_mma<C>(f1 + (int64_t)ii[e] * hw * C,
+              lv.f2[l] + (int64_t)jj[e] * rows * C,
+              xs + (int64_t)e * hw * n_levels, out_e, rows, lv.w2p[l], l,
+              n_levels, 0, kNx / 2, lane,
+              [&](int u) { return p0 + u < hw ? p0 + u : -1; });
 }
 
-}  // namespace
+// ---- the box design (`corr_window_mma`) ---------------------------------
 
-// f2 / rows / w2p: arrays of n_levels entries. c must be 32, 64 or 128.
-// Returns a cudaError_t.
-extern "C" int corr_window_mma(const void* f1, const void* const* f2,
-                               const int64_t* rows, const int64_t* w2p,
-                               const void* ii, const void* jj,
-                               const void* mask, const void* xs, void* out,
-                               int64_t n_edges, int64_t hw, int64_t c,
-                               int64_t n_levels, void* stream) {
+template <int C>
+__global__ void __launch_bounds__(kThreads, 3)
+corr_window_mma_box_kernel(const float* __restrict__ f1, const Levels lv,
+                           const int* __restrict__ ii,
+                           const int* __restrict__ jj,
+                           const int* __restrict__ mask,
+                           const int* __restrict__ xs,
+                           float* __restrict__ out, int hw, int width,
+                           int n_levels) {
+  constexpr int kFs = C + 4;                  // words per f1 row in shared memory
+  extern __shared__ float4 smem4[];
+  float* buf = reinterpret_cast<float*>(smem4);   // 2 x [kBoxRows][kChunkStride]
+  uint32_t* a_hi = reinterpret_cast<uint32_t*>(buf + 2 * kBufFloats);
+  uint32_t* a_lo = a_hi + kTilePix * kFs;         // [kTilePix][C + 4] each
+  __shared__ int pix[kTilePix];
+  __shared__ Box boxes[kMaxLevels];
+  const int e = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int q = lane % 4;
+  const int per_pixel = n_levels * kNx * kNx;
+  float* out_e = out + (int64_t)e * hw * per_pixel;
+
+  corr_box::tile_pixels(pix, hw, width, tid);
+  __syncthreads();
+  if (mask[e] == 0) {
+    corr_box::store_zeros(pix, out_e, per_pixel, tid);
+    return;
+  }
+
+  // the tile's f1 rows as TF32 high and low parts
+  const float* f1_e = f1 + (int64_t)ii[e] * hw * C;
+  for (int k = tid; k < kTilePix * C; k += kThreads) {
+    const int t = k / C;
+    const int p = pix[t];
+    uint32_t hi, lo;
+    split_bits(p >= 0 ? f1_e[(int64_t)p * C + k % C] : 0.f, hi, lo);
+    a_hi[t * kFs + k % C] = hi;
+    a_lo[t * kFs + k % C] = lo;
+  }
+  const int* xs_e = xs + (int64_t)e * hw * n_levels;
+  corr_box::tile_boxes(xs_e, lv, n_levels, pix, boxes, tid);
+  auto f2_of = [&](int l) {
+    return lv.f2[l] + (int64_t)jj[e] * lv.rows[l] * C;
+  };
+
+  // the levels whose box does not fit: the row design (warp w: pixels
+  // 8 (w / 2) .. + 7 of the tile, window rows 4 (w % 2) .. + 3)
+  auto rows_first = [&]() {
+    const int u0 = kPix * (warp / 2);
+    const int t0 = 2 * (warp % 2);
+    for (int l = 0; l < n_levels; ++l) {
+      if (boxes[l].ok) continue;
+      rows_mma<C>(f1_e, f2_of(l), xs_e, out_e, lv.rows[l], lv.w2p[l], l,
+                  n_levels, t0, t0 + 2, lane,
+                  [&](int u) { return pix[u0 + u]; });
+    }
+  };
+
+  // the box levels: M = the 16 pixels, N = 8 box rows (warp w takes the
+  // n-tiles w, w + 4, ...), K = the chunk's channels
+  float d[kNTiles][4];
+#pragma unroll
+  for (int u = 0; u < kNTiles; ++u) d[u][0] = d[u][1] = d[u][2] = d[u][3] = 0.f;
+  auto compute = [&](int l, const float* bs, int k0) {
+    const int n_rows = boxes[l].n;
+#pragma unroll
+    for (int kk = 0; kk < kChunk; kk += 8) {
+      const int k = k0 + kk + q;
+      const uint32_t ah[4] = {a_hi[g * kFs + k], a_hi[(g + 8) * kFs + k],
+                              a_hi[g * kFs + k + 4],
+                              a_hi[(g + 8) * kFs + k + 4]};
+      const uint32_t al[4] = {a_lo[g * kFs + k], a_lo[(g + 8) * kFs + k],
+                              a_lo[g * kFs + k + 4],
+                              a_lo[(g + 8) * kFs + k + 4]};
+#pragma unroll
+      for (int u = 0; u < kNTiles; ++u) {
+        const int n0 = 8 * (warp + 4 * u);
+        if (n0 < n_rows) {
+          const float* r = bs + (n0 + g) * kChunkStride + kk + q;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_bits(r[0], bh0, bl0);
+          split_bits(r[4], bh1, bl1);
+          mma_tf32(d[u], al, bh0, bh1);
+          mma_tf32(d[u], ah, bl0, bl1);
+          mma_tf32(d[u], ah, bh0, bh1);
+        }
+      }
+    }
+  };
+  // the dots [kTilePix][kDStride] in the free buffer, then the pick:
+  // d0 (pixel g, row n0 + 2q), d1 (g, n0 + 2q + 1), d2 / d3 pixel g + 8
+  auto finish = [&](int l, float* dots) {
+    const int n_rows = boxes[l].n;
+#pragma unroll
+    for (int u = 0; u < kNTiles; ++u) {
+      const int n0 = 8 * (warp + 4 * u);
+      if (n0 < n_rows) {
+        *reinterpret_cast<float2*>(dots + g * kDStride + n0 + 2 * q) =
+            make_float2(d[u][0], d[u][1]);
+        *reinterpret_cast<float2*>(dots + (g + 8) * kDStride + n0 + 2 * q) =
+            make_float2(d[u][2], d[u][3]);
+      }
+      d[u][0] = d[u][1] = d[u][2] = d[u][3] = 0.f;
+    }
+    __syncthreads();
+    corr_box::store_picked<1>(dots, boxes[l], pix, out_e, per_pixel, l, tid);
+    __syncthreads();
+  };
+  corr_box::stream_boxes(buf, boxes, n_levels, C, tid, f2_of, rows_first,
+                         compute, finish);
+}
+
+template <int C>
+void launch_box(const float* f1, const Levels& lv, const int* ii,
+                const int* jj, const int* mask, const int* xs, float* out,
+                int64_t n_edges, int64_t hw, int64_t width, int64_t n_levels,
+                cudaStream_t stream) {
+  const int64_t tiles =
+      ((hw / width + corr_box::kTileH - 1) / corr_box::kTileH) *
+      ((width + corr_box::kTileW - 1) / corr_box::kTileW);
+  const dim3 grid((unsigned int)tiles, (unsigned int)n_edges);
+  const size_t smem = (2 * (size_t)kBufFloats + 2 * (size_t)kTilePix * (C + 4)) *
+                      sizeof(float);
+  static size_t smem_set = 0;                 // above 48 KB: opt in once
+  if (smem > smem_set) {
+    cudaFuncSetAttribute(corr_window_mma_box_kernel<C>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    smem_set = smem;
+  }
+  corr_window_mma_box_kernel<C><<<grid, kThreads, smem, stream>>>(
+      f1, lv, ii, jj, mask, xs, out, (int)hw, (int)width, (int)n_levels);
+}
+
+template <int C>
+void launch_rows(const float* f1, const Levels& lv, const int* ii,
+                 const int* jj, const int* mask, const int* xs, float* out,
+                 int64_t n_edges, int64_t hw, int64_t n_levels,
+                 cudaStream_t stream) {
+  const dim3 grid((unsigned int)((hw + kPix - 1) / kPix),
+                  (unsigned int)n_edges);
+  corr_window_mma_rows_kernel<C><<<grid, 32 * (int)n_levels, 0, stream>>>(
+      f1, lv, ii, jj, mask, xs, out, (int)hw, (int)n_levels);
+}
+
+// width 0: the row design; otherwise the box design on an H x width grid
+int dispatch(const void* f1, const void* const* f2, const int64_t* rows,
+             const int64_t* w2p, const void* ii, const void* jj,
+             const void* mask, const void* xs, void* out, int64_t n_edges,
+             int64_t hw, int64_t width, int64_t c, int64_t n_levels,
+             void* stream) {
   if (n_levels < 1 || n_levels > kMaxLevels ||
-      (c != 32 && c != 64 && c != 128)) {
+      (c != 32 && c != 64 && c != 128) || width < 0 ||
+      (width > 0 && hw % width != 0)) {
     return (int)cudaErrorInvalidValue;
   }
-  Levels lv;
-  for (int l = 0; l < kMaxLevels; ++l) {
-    const int k = l < n_levels ? l : 0;
-    lv.f2[l] = (const float*)f2[k];
-    lv.rows[l] = rows[k];
-    lv.w2p[l] = w2p[k];
-  }
+  const Levels lv = make_levels(f2, rows, w2p, n_levels);
   if (n_edges > 0 && hw > 0) {
     const float* f1p = (const float*)f1;
     const int* iip = (const int*)ii;
@@ -222,9 +411,47 @@ extern "C" int corr_window_mma(const void* f1, const void* const* f2,
     const int* xsp = (const int*)xs;
     float* op = (float*)out;
     cudaStream_t s = (cudaStream_t)stream;
-    if (c == 32) launch<32>(f1p, lv, iip, jjp, mp, xsp, op, n_edges, hw, n_levels, s);
-    if (c == 64) launch<64>(f1p, lv, iip, jjp, mp, xsp, op, n_edges, hw, n_levels, s);
-    if (c == 128) launch<128>(f1p, lv, iip, jjp, mp, xsp, op, n_edges, hw, n_levels, s);
+#define BOX_ARGS f1p, lv, iip, jjp, mp, xsp, op, n_edges, hw, width, n_levels, s
+#define ROWS_ARGS f1p, lv, iip, jjp, mp, xsp, op, n_edges, hw, n_levels, s
+    if (width > 0) {
+      if (c == 32) launch_box<32>(BOX_ARGS);
+      if (c == 64) launch_box<64>(BOX_ARGS);
+      if (c == 128) launch_box<128>(BOX_ARGS);
+    } else {
+      if (c == 32) launch_rows<32>(ROWS_ARGS);
+      if (c == 64) launch_rows<64>(ROWS_ARGS);
+      if (c == 128) launch_rows<128>(ROWS_ARGS);
+    }
+#undef BOX_ARGS
+#undef ROWS_ARGS
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The box design. f2 / rows / w2p: arrays of n_levels entries; width: the
+// pixel grid's W (hw = H * W); c must be 32, 64 or 128. Returns a
+// cudaError_t.
+extern "C" int corr_window_mma(const void* f1, const void* const* f2,
+                               const int64_t* rows, const int64_t* w2p,
+                               const void* ii, const void* jj,
+                               const void* mask, const void* xs, void* out,
+                               int64_t n_edges, int64_t hw, int64_t width,
+                               int64_t c, int64_t n_levels, void* stream) {
+  if (width < 1) return (int)cudaErrorInvalidValue;
+  return dispatch(f1, f2, rows, w2p, ii, jj, mask, xs, out, n_edges, hw,
+                  width, c, n_levels, stream);
+}
+
+// The row design of the first port (no width argument).
+extern "C" int corr_window_mma_rows(const void* f1, const void* const* f2,
+                                    const int64_t* rows, const int64_t* w2p,
+                                    const void* ii, const void* jj,
+                                    const void* mask, const void* xs,
+                                    void* out, int64_t n_edges, int64_t hw,
+                                    int64_t c, int64_t n_levels,
+                                    void* stream) {
+  return dispatch(f1, f2, rows, w2p, ii, jj, mask, xs, out, n_edges, hw, 0,
+                  c, n_levels, stream);
 }

@@ -12,8 +12,9 @@ contribute zero, features pre-scaled by 1/4 on each side.
 every call, as the JAX package does (no value is chosen by device):
 - unset or `pallas`: the integer 8 x 8 window dots of every level come
   from one `kernels.corr_window.corr_window_multilevel` call (TPU kernel
-  2: the CUDA kernel on a GPU tensor, its plain version on a CPU tensor);
-  the bilinear combine of the scalar field is plain torch;
+  2: the CUDA kernel on a GPU tensor, its plain version on a CPU tensor;
+  the kernel tiles the H x W grid, so it gets W from the pyramid); the
+  bilinear combine of the scalar field is plain torch;
 - `pallas_mxu`: the same with `corr_window_multilevel_mma` (TPU kernel
   2b, the tensor-core kernel);
 - `pallas_per_level`: `alt_corr_per_level`, one `corr_window` call per
@@ -157,7 +158,7 @@ def alt_corr_multilevel(fmaps: torch.Tensor, ii: torch.Tensor,
     window = corr_window_multilevel_mma if mxu else corr_window_multilevel
     corr_int = window(
         f1_rows, f2_levels, ii.to(torch.int32).contiguous(),
-        jj.to(torch.int32).contiguous(), xs, w2ps, mask=m,
+        jj.to(torch.int32).contiguous(), xs, w2ps, W, mask=m,
     ).reshape(E, HW, len(pyr), nx, nx)
     corr = torch.cat([_bilinear(corr_int[:, :, lvl], *frac, rd)
                       for lvl, frac in enumerate(fracs)], dim=-1)
@@ -182,7 +183,7 @@ def alt_corr_per_level(fmaps: torch.Tensor, ii: torch.Tensor,
     out = []
     for lvl, frac in enumerate(fracs):
         ci = corr_window(f1_rows, f2_levels[lvl], ii32, jj32,
-                         xs[..., lvl].contiguous(), w2ps[lvl])
+                         xs[..., lvl].contiguous(), w2ps[lvl], W)
         out.append(_bilinear(ci.reshape(E, HW, nx, nx), *frac, rd))
     return torch.cat(out, dim=-1).permute(0, 2, 1).reshape(E, -1, H, W)
 

@@ -16,23 +16,31 @@ numpy seed). Each TPU variant and its H100 counterpart:
   alt_corr_xla                           alt_corr[xla]: the same with
                                          MNESLAM_CORR_IMPL=xla (slab gather)
   int-window kernel [vpu]                kernel2: `corr_window_multilevel`
-                                         with no mask (all 91 slots computed)
+                                         (the box design) with no mask (all
+                                         91 slots computed)
   int-window kernel [vpu+skip]           kernel2+skip: with the mask (the 16
                                          padded slots written as zeros; the
-                                         TPU probe leaves them unwritten)
+                                         TPU probe leaves them unwritten);
+                                         kernel2rows+skip: the same in the
+                                         row design of the first port
+                                         (`corr_window_multilevel_rows`)
   int-window kernel [mxu] / [mxu+skip]   kernel2b / kernel2b+skip:
-                                         `corr_window_multilevel_mma`
-                                         (tensor cores, 3xTF32)
+                                         `corr_window_multilevel_mma` (box
+                                         design, tensor cores, 3xTF32);
+                                         kernel2brows+skip: its row design
+                                         (`corr_window_multilevel_mma_rows`)
   int-window kernel [vpu+skip u1/u2/     kernel2+skip u1 / u2 / u4 / u8, and
   u4/u8] (prof_corr6.py)                 u16: `corr_window_multilevel_
-                                         unrolled`, the pixel loop unrolled
-                                         U-fold
+                                         unrolled`, the row design's pixel
+                                         loop unrolled U-fold
 
 Protocol: each kernel variant is first checked against the plain version
 (`corr_window_multilevel_plain`) per output within CORR_RTOL x the dot of
 the magnitudes + CORR_ATOL (both sum C fp32 products, in their own orders;
 MMA_RTOL for kernel 2b's 3xTF32), with the masked slots exactly zero; the
-unrolled variants are also compared with kernel 2 bit for bit (reported).
+unrolled variants are also compared bit for bit with the row design they
+unroll, kernel2rows+skip (reported). The share of (real edge, tile, level)
+that took the box design's box path is reported as "box_share".
 alt_corr[pallas] and alt_corr[xla] are checked against each other within
 ALT_RTOL x the combine of the dot magnitudes + CORR_ATOL. Then each is
 timed: CUDA events around K calls after a warm-up, the median of 5. Each
@@ -57,9 +65,12 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels.corr_window import (UNROLLS, corr_window_multilevel,
+from ..kernels.corr_window import (UNROLLS, box_path_share,
+                                   corr_window_multilevel,
                                    corr_window_multilevel_mma,
+                                   corr_window_multilevel_mma_rows,
                                    corr_window_multilevel_plain,
+                                   corr_window_multilevel_rows,
                                    corr_window_multilevel_unrolled)
 from ..ops import correlation
 from .measure import FP32_FLOPS, TF32_FLOPS, bound_ms, corr_bound_ms, median_ms
@@ -85,9 +96,9 @@ TPU_COUNTERPARTS = {
     "alt_corr_pallas_ml (production)": ["alt_corr[pallas]"],
     "alt_corr_xla": ["alt_corr[xla]"],
     "int-window kernel [vpu]": ["kernel2"],
-    "int-window kernel [vpu+skip]": ["kernel2+skip"],
+    "int-window kernel [vpu+skip]": ["kernel2+skip", "kernel2rows+skip"],
     "int-window kernel [mxu]": ["kernel2b"],
-    "int-window kernel [mxu+skip]": ["kernel2b+skip"],
+    "int-window kernel [mxu+skip]": ["kernel2b+skip", "kernel2brows+skip"],
     **{f"int-window kernel [vpu+skip u{u}]": [f"kernel2+skip u{u}"]
        for u in (1, 2, 4, 8)},
 }
@@ -129,6 +140,33 @@ def probe_inputs(device: torch.device, N, C, H, W, E, n_real, n_kf,
             t(mask))
 
 
+def smooth_coords(E: int, H: int, W: int, seed: int = 0,
+                  step: float = 0.0) -> np.ndarray:
+    """Lookup centres [E, H, W, 2] (x, y) as the reprojection of a smooth
+    scene gives them, from a numpy seed: per edge the pixel grid plus a
+    shift of up to 6 pixels, an affine part of up to 0.06 pixel per pixel
+    and one wave of up to W / 100 pixels across the image. `step` adds a
+    depth step: the pixels from column W // 2 + 2 on move `step` pixels
+    further in x (the step cuts through 4 x 4 pixel tiles)."""
+    rng = np.random.default_rng(seed)
+    y, x = np.meshgrid(np.arange(H, dtype=np.float64),
+                       np.arange(W, dtype=np.float64), indexing="ij")
+    u, v = x - W / 2, y - H / 2
+    wave = 2 * np.pi * (x / W + y / H)
+    out = np.empty((E, H, W, 2), np.float32)
+    for e in range(E):
+        t = rng.uniform(-6, 6, 2)
+        a = rng.uniform(-0.06, 0.06, (2, 2))
+        amp = rng.uniform(0, W / 100, 2)
+        phase = rng.uniform(0, 2 * np.pi, 2)
+        out[e, ..., 0] = (x + t[0] + a[0, 0] * u + a[0, 1] * v
+                          + amp[0] * np.sin(wave + phase[0])
+                          + step * (x >= W // 2 + 2))
+        out[e, ..., 1] = (y + t[1] + a[1, 0] * u + a[1, 1] * v
+                          + amp[1] * np.sin(wave + phase[1]))
+    return out
+
+
 def kernel_inputs(fmaps, coords):
     """f1 rows, padded levels, widths and slab starts as `alt_corr` builds
     them."""
@@ -153,8 +191,8 @@ def alt_corr_bound(fmaps, coords, ii, jj, mask, f1, levels, xs):
 def run(device="cuda", small: bool = False, reps: int = None,
         walls: int = None, log: Callable[[str], None] = print) -> Dict:
     """Check, then time, every variant -> {"device", "failed": [names],
-    "<variant>": {"ms", "bound_ms", "bound_by", "max_abs_err",
-    "err_ratio"[, "equal_to_kernel2", "max_abs_diff_kernel2"]} or
+    "box_share": [per level], "<variant>": {"ms", "bound_ms", "bound_by",
+    "max_abs_err", "err_ratio"[, "equal_to_rows", "max_abs_diff_rows"]} or
     "wrong: ..." / "failed: ..."}."""
     dev = resolve_device(device)
     on_gpu = dev.type == "cuda"
@@ -170,6 +208,10 @@ def run(device="cuda", small: bool = False, reps: int = None,
     f1, levels, w2ps, xs = kernel_inputs(fmaps, coords)
     ones = torch.ones_like(mask)
     args = (f1, levels, ii, jj, xs, w2ps)
+    width = fmaps.shape[3]
+    results["box_share"] = box_path_share(
+        xs, [lv.shape[1] for lv in levels], w2ps, width, mask)
+    log(f"box path share by level (real edges): {results['box_share']}")
     ref = corr_window_multilevel_plain(*args)
     mag = corr_window_multilevel_plain(f1.abs(), [lv.abs() for lv in levels],
                                        ii, jj, xs, w2ps)
@@ -229,23 +271,30 @@ def run(device="cuda", small: bool = False, reps: int = None,
     b_skip = corr_bound_ms(f1, levels, ii, jj, xs, mask)[:2]
     b_all_tc = corr_bound_ms(f1, levels, ii, jj, xs, ones, TF32_FLOPS)[:2]
     b_skip_tc = corr_bound_ms(f1, levels, ii, jj, xs, mask, TF32_FLOPS)[:2]
-    record("kernel2", lambda: corr_window_multilevel(*args), ref, tol, b_all)
-    k2 = record("kernel2+skip",
-                lambda: corr_window_multilevel(*args, mask=mask), ref_skip,
-                tol, b_skip)
-    record("kernel2b", lambda: corr_window_multilevel_mma(*args), ref,
+    record("kernel2", lambda: corr_window_multilevel(*args, width), ref, tol,
+           b_all)
+    record("kernel2+skip",
+           lambda: corr_window_multilevel(*args, width, mask=mask), ref_skip,
+           tol, b_skip)
+    rows = record("kernel2rows+skip",
+                  lambda: corr_window_multilevel_rows(*args, mask=mask),
+                  ref_skip, tol, b_skip)
+    record("kernel2b", lambda: corr_window_multilevel_mma(*args, width), ref,
            tol_mma, b_all_tc)
-    record("kernel2b+skip", lambda: corr_window_multilevel_mma(*args,
-                                                               mask=mask),
+    record("kernel2b+skip",
+           lambda: corr_window_multilevel_mma(*args, width, mask=mask),
+           ref_skip, tol_mma, b_skip_tc)
+    record("kernel2brows+skip",
+           lambda: corr_window_multilevel_mma_rows(*args, mask=mask),
            ref_skip, tol_mma, b_skip_tc)
     for u in UNROLLS:
         fn = (lambda u=u: corr_window_multilevel_unrolled(*args, mask=mask,
                                                           unroll=u))
         extra = None
-        if k2 is not None:
+        if rows is not None:
             got = fn()
-            extra = {"equal_to_kernel2": bool(torch.equal(got, k2)),
-                     "max_abs_diff_kernel2": float((got - k2).abs().max())}
+            extra = {"equal_to_rows": bool(torch.equal(got, rows)),
+                     "max_abs_diff_rows": float((got - rows).abs().max())}
             del got
         record(f"kernel2+skip u{u}", fn, ref_skip, tol, b_skip, extra)
     return results

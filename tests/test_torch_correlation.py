@@ -15,6 +15,7 @@ from mneslam_tpu.ops import correlation as jcorr
 from mneslam_tpu.ops import pallas_kernels as jpk
 from mneslam_tpu_torch.kernels import corr_window as kcw
 from mneslam_tpu_torch.ops import correlation as pcorr
+from mneslam_tpu_torch.tools.prof_corr import smooth_coords
 from test_tracking import brute_force_corr
 
 torch.set_num_threads(1)
@@ -33,10 +34,14 @@ def _inputs(seed, N=3, C=8, E=3):
     return fmaps, coords
 
 
-def _kernel_inputs(seed, N=3, C=8):
+def _kernel_inputs(seed, N=3, C=8, smooth=False):
     """f1 rows, padded f2 levels, widths and slab starts built by the JAX
-    package's own preprocessing (`alt_corr_pallas_ml`'s prologue)."""
+    package's own preprocessing (`alt_corr_pallas_ml`'s prologue); with
+    `smooth` the lookup centres of `smooth_coords` (the box design's box
+    path on a GPU) in place of uniformly drawn ones."""
     fmaps, coords = _inputs(seed, N, C)
+    if smooth:
+        coords = smooth_coords(3, HT, WD, seed=seed)
     pyr = jcorr.build_pyramid(jnp.asarray(fmaps))
     radius, nx, padl = 3, 8, 7
     f1 = pyr[0].transpose(0, 2, 3, 1).reshape(N, HT * WD, C)
@@ -72,7 +77,7 @@ def test_plain_multilevel_kernel_matches_pallas_interpret():
         mask=jnp.asarray(mask), interpret=True)
     got = kcw.corr_window_multilevel(
         _t(f1), [_t(lv) for lv in levels], _t(ii), _t(jj),
-        _t(xs4).contiguous(), w2ps, mask=_t(mask))
+        _t(xs4).contiguous(), w2ps, WD, mask=_t(mask))
     assert got.shape == (4, HT * WD, 4, 64)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=RTOL,
                                atol=ATOL)
@@ -88,7 +93,7 @@ def test_plain_per_level_kernel_matches_pallas_interpret():
                                   jnp.asarray(jj), xs[..., lvl], 8,
                                   w2ps[lvl], interpret=True)
         got = kcw.corr_window(_t(f1), _t(levels[lvl]), _t(ii), _t(jj),
-                              _t(xs[..., lvl]).contiguous(), w2ps[lvl])
+                              _t(xs[..., lvl]).contiguous(), w2ps[lvl], WD)
         assert got.shape == (3, HT * WD, 64)
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=RTOL,
                                    atol=ATOL)
@@ -108,7 +113,7 @@ def test_plain_mma_kernel_matches_pallas_interpret():
     args = (_t(f1), [_t(lv) for lv in levels], _t(ii), _t(jj),
             _t(xs4).contiguous(), w2ps)
     before = kcw.corr_window_multilevel_mma.launches
-    got = kcw.corr_window_multilevel_mma(*args, mask=_t(mask))
+    got = kcw.corr_window_multilevel_mma(*args, WD, mask=_t(mask))
     assert kcw.corr_window_multilevel_mma.launches == before   # CPU: plain
     assert got.shape == (4, HT * WD, 4, 64)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=RTOL,
@@ -126,6 +131,68 @@ def test_plain_mma_kernel_matches_pallas_interpret():
         kcw.corr_window_multilevel_mma_plain(*sub).numpy(),
         kcw.corr_window_multilevel_plain(*sub).numpy(), rtol=RTOL,
         atol=ATOL)
+
+
+@pytest.mark.parametrize("kernel", ["multilevel", "per_level", "mma"])
+def test_plain_kernels_match_pallas_interpret_on_smooth_centres(kernel):
+    """The smooth centres that the box design of kernels 2, 3 and 2b takes
+    on its box path on a GPU: the plain versions (the wrappers' CPU path)
+    against the Pallas kernels in interpret mode, a masked edge included."""
+    f1, levels, w2ps, xs = _kernel_inputs(9, smooth=True)
+    ii = np.array([0, 1, 0, 2], np.int32)
+    jj = np.array([1, 2, 2, 0], np.int32)
+    mask = np.array([1, 1, 0, 1], np.int32)
+    xs4 = jnp.concatenate([xs, xs[:1]])
+    targs = (_t(f1), [_t(lv) for lv in levels], _t(ii), _t(jj),
+             _t(xs4).contiguous(), w2ps, WD)
+    share = kcw.box_path_share(targs[4], [lv.shape[1] for lv in levels],
+                               w2ps, WD, _t(mask))
+    assert min(share) > 0.9, share
+    if kernel == "per_level":
+        for lvl in range(4):
+            ref = jpk.corr_window_int(f1, levels[lvl], jnp.asarray(ii),
+                                      jnp.asarray(jj), xs4[..., lvl], 8,
+                                      w2ps[lvl], interpret=True)
+            got = kcw.corr_window(targs[0], targs[1][lvl], *targs[2:4],
+                                  targs[4][..., lvl].contiguous(), w2ps[lvl],
+                                  WD)
+            np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                                       rtol=RTOL, atol=ATOL)
+        return
+    mxu = kernel == "mma"
+    ref = jpk.corr_window_int_multilevel(
+        f1, levels, jnp.asarray(ii), jnp.asarray(jj), xs4, 8, tuple(w2ps),
+        mask=jnp.asarray(mask), interpret=True, mxu=mxu)
+    fn = kcw.corr_window_multilevel_mma if mxu else kcw.corr_window_multilevel
+    got = fn(*targs, mask=_t(mask))
+    assert got.shape == (4, HT * WD, 4, 64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=RTOL,
+                               atol=ATOL)
+    assert not got[2].any()
+
+
+@pytest.mark.parametrize("mxu", [False, True])
+def test_plain_kernels_clamp_window_rows_as_pallas_interpret(mxu):
+    """Slab starts whose window rows leave the padded level (above its
+    first row, below its last, at +-10^6): the plain versions clamp each
+    window row's start to [0, R - 8], as the CUDA kernels do and as the
+    Pallas kernels' dynamic slices do in interpret mode."""
+    f1, levels, w2ps, xs = _kernel_inputs(10, smooth=True)
+    xs = np.array(xs)
+    for lvl, w2p in enumerate(w2ps):
+        xs[0, :40, lvl] -= 6 * w2p
+        xs[1, -40:, lvl] += 8 * w2p
+        xs[2, :3, lvl] = [-10 ** 6, 10 ** 6, -1]
+    ii = np.array([0, 1, 2], np.int32)
+    jj = np.array([1, 2, 0], np.int32)
+    ref = jpk.corr_window_int_multilevel(
+        f1, levels, jnp.asarray(ii), jnp.asarray(jj), jnp.asarray(xs), 8,
+        tuple(w2ps), interpret=True, mxu=mxu)
+    fn = kcw.corr_window_multilevel_mma if mxu else kcw.corr_window_multilevel
+    got = fn(_t(f1), [_t(lv) for lv in levels], _t(ii), _t(jj), _t(xs),
+             w2ps, WD)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=RTOL,
+                               atol=ATOL)
 
 
 def _inside_coords(seed, E=3):
@@ -192,18 +259,23 @@ def test_alt_corr_selection_rejects_unknown_value(monkeypatch):
 def test_kernel_wrappers_reject_bad_inputs():
     f1, levels, w2ps, xs = _kernel_inputs(2)
     args = [_t(f1), [_t(lv) for lv in levels], _t(np.zeros(3, np.int32)),
-            _t(np.ones(3, np.int32)), _t(xs).contiguous(), w2ps]
+            _t(np.ones(3, np.int32)), _t(xs).contiguous(), w2ps, WD]
     with pytest.raises(TypeError, match="int32"):
         kcw.corr_window_multilevel(*args[:2], args[2].long(), *args[3:])
     with pytest.raises(TypeError, match="float32"):
         kcw.corr_window_multilevel(args[0].double(), *args[1:])
     with pytest.raises(ValueError, match="xs"):
         kcw.corr_window_multilevel(*args[:4], args[4][:, :5].contiguous(),
-                                   w2ps)
+                                   w2ps, WD)
     with pytest.raises(ValueError, match="contiguous"):
         kcw.corr_window_multilevel(
             *args[:4], args[4].transpose(0, 1).contiguous().transpose(0, 1),
-            w2ps)
+            w2ps, WD)
+    for bad in (0, 5, HT * WD + 1):               # W must divide HW
+        with pytest.raises(ValueError, match="width"):
+            kcw.corr_window_multilevel(*args[:6], bad)
+        with pytest.raises(ValueError, match="width"):
+            kcw.corr_window_multilevel_mma(*args[:6], bad)
     # a CPU call never launches the kernel
     before = kcw.corr_window_multilevel.launches
     kcw.corr_window_multilevel(*args)

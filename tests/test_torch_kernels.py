@@ -15,16 +15,23 @@ magnitudes (plus 1e-7). Kernel 2b (tensor cores, 3xTF32) against its plain
 version and against kernel 2: MMA_RTOL below, derived there. The blocked
 and bucketed scatters add into shared memory with atomics, so they take
 the scatter's tolerance; the corr variants with an unrolled pixel loop
-keep every output's FMA sequence and must equal kernel 2 bit for bit.
+keep every output's FMA sequence and must equal the row design they
+unroll (`corr_window_multilevel_rows`) bit for bit. The box design of the
+correlation kernels runs on smooth lookup centres (`smooth_coords`), its
+row path on scattered ones; both hold the same tolerances.
 """
+
+import numpy as np
 
 import pytest
 import torch
 
 from mneslam_tpu_torch.kernels.corr_window import (
-    UNROLLS, corr_window, corr_window_multilevel, corr_window_multilevel_mma,
-    corr_window_multilevel_mma_plain, corr_window_multilevel_plain,
-    corr_window_multilevel_unrolled, corr_window_plain)
+    UNROLLS, box_path_share, corr_window, corr_window_multilevel,
+    corr_window_multilevel_mma, corr_window_multilevel_mma_plain,
+    corr_window_multilevel_mma_rows, corr_window_multilevel_plain,
+    corr_window_multilevel_rows, corr_window_multilevel_unrolled,
+    corr_window_plain)
 from mneslam_tpu_torch.kernels.scatter_add_rows import (
     scatter_add_rows, scatter_add_rows_per_warp, scatter_add_rows_plain)
 from mneslam_tpu_torch.kernels.scatter_rows_blocked import (
@@ -33,6 +40,7 @@ from mneslam_tpu_torch.kernels.scatter_rows_bucketed import (
     bucket_route, scatter_add_rows_bucketed,
     scatter_add_rows_bucketed_plain)
 from mneslam_tpu_torch.ops import correlation, interp
+from mneslam_tpu_torch.tools.prof_corr import smooth_coords
 
 pytestmark = pytest.mark.cuda
 
@@ -235,15 +243,17 @@ CORR_RTOL = 2 * 128 * 2.0 ** -24
 MMA_RTOL = 3 * 2.0 ** -22 + 3 * 128 * 2.0 ** -23 + 128 * 2.0 ** -24
 
 
-def _corr_inputs(N, H, W, E, n_masked, device, seed=0, C=128):
+def _corr_inputs(N, H, W, E, n_masked, device, seed=0, C=128, coords=None):
     """Feature rows, padded levels, slab starts and mask the way
     `correlation.alt_corr` builds them, with lookup centres inside, near
-    and far outside the image."""
+    and far outside the image (scattered: every pixel tile overflows the
+    box design's box), or `coords` [E, H, W, 2] given."""
     g = torch.Generator().manual_seed(seed)
     fmaps = torch.randn((N, C, H, W), generator=g)
-    coords = torch.stack([torch.rand((E, H, W), generator=g) * (W + 40) - 20,
-                          torch.rand((E, H, W), generator=g) * (H + 40) - 20],
-                         dim=-1)
+    scattered = torch.stack(
+        [torch.rand((E, H, W), generator=g) * (W + 40) - 20,
+         torch.rand((E, H, W), generator=g) * (H + 40) - 20], dim=-1)
+    coords = scattered if coords is None else torch.as_tensor(coords)
     pyr = correlation.build_pyramid(fmaps.to(device))
     f1 = pyr[0].permute(0, 2, 3, 1).reshape(N, H * W, C).contiguous()
     levels, w2ps, xs, _ = correlation._padded_levels(pyr, coords.to(device),
@@ -269,7 +279,7 @@ def test_corr_window_multilevel_matches_plain(cuda, N, H, W, E, n_masked):
     f1, levels, ii, jj, xs, w2ps, mask = _corr_inputs(N, H, W, E, n_masked,
                                                       cuda)
     before = corr_window_multilevel.launches
-    got = corr_window_multilevel(f1, levels, ii, jj, xs, w2ps, mask=mask)
+    got = corr_window_multilevel(f1, levels, ii, jj, xs, w2ps, W, mask=mask)
     assert corr_window_multilevel.launches == before + 1
     ref = corr_window_multilevel_plain(f1, levels, ii, jj, xs, w2ps,
                                        mask=mask)
@@ -295,13 +305,14 @@ def test_corr_window_mma_matches_plain_and_kernel2(cuda, N, H, W, E,
     f1, levels, ii, jj, xs, w2ps, mask = _corr_inputs(N, H, W, E, n_masked,
                                                       cuda)
     before = corr_window_multilevel_mma.launches
-    got = corr_window_multilevel_mma(f1, levels, ii, jj, xs, w2ps, mask=mask)
+    got = corr_window_multilevel_mma(f1, levels, ii, jj, xs, w2ps, W,
+                                     mask=mask)
     assert corr_window_multilevel_mma.launches == before + 1
     mag = corr_window_multilevel_plain(f1.abs(), [lv.abs() for lv in levels],
                                        ii, jj, xs, w2ps, mask=mask)
     ref = corr_window_multilevel_mma_plain(f1, levels, ii, jj, xs, w2ps,
                                            mask=mask)
-    k2 = corr_window_multilevel(f1, levels, ii, jj, xs, w2ps, mask=mask)
+    k2 = corr_window_multilevel(f1, levels, ii, jj, xs, w2ps, W, mask=mask)
     torch.cuda.synchronize()
     assert got.shape == (E, H * W, 4, 64) and got.dtype == torch.float32
     assert bool(((got - ref).abs() <= MMA_RTOL * mag + 1e-7).all())
@@ -316,9 +327,12 @@ def test_corr_window_mma_matches_plain_and_kernel2(cuda, N, H, W, E,
     (3, 13, 21, 4, 1),        # HW not a multiple of the pixel tile
 ])
 def test_corr_window_unrolled_equals_kernel2(cuda, N, H, W, E, n_masked):
+    """The unrolled variants of the row design against that design's own
+    entry (the production kernel 2 of the first port), bit for bit."""
     f1, levels, ii, jj, xs, w2ps, mask = _corr_inputs(N, H, W, E, n_masked,
                                                       cuda)
-    k2 = corr_window_multilevel(f1, levels, ii, jj, xs, w2ps, mask=mask)
+    k2 = corr_window_multilevel_rows(f1, levels, ii, jj, xs, w2ps,
+                                     mask=mask)
     for u in UNROLLS:
         before = corr_window_multilevel_unrolled.launches
         got = corr_window_multilevel_unrolled(f1, levels, ii, jj, xs, w2ps,
@@ -335,10 +349,10 @@ def test_corr_window_mma_rejects_bad_inputs(cuda):
     f1, levels, ii, jj, xs, w2ps, mask = _corr_inputs(3, 12, 16, 2, 0, cuda,
                                                       C=96)
     with pytest.raises(ValueError, match="32, 64 or 128"):
-        corr_window_multilevel_mma(f1, levels, ii, jj, xs, w2ps)
+        corr_window_multilevel_mma(f1, levels, ii, jj, xs, w2ps, 16)
     f1, levels, ii, jj, xs, w2ps, mask = _corr_inputs(3, 12, 16, 2, 0, cuda,
                                                       C=64)
-    got = corr_window_multilevel_mma(f1, levels, ii, jj, xs, w2ps)
+    got = corr_window_multilevel_mma(f1, levels, ii, jj, xs, w2ps, 16)
     mag = corr_window_multilevel_plain(f1.abs(), [lv.abs() for lv in levels],
                                        ii, jj, xs, w2ps)
     ref = corr_window_multilevel_plain(f1, levels, ii, jj, xs, w2ps)
@@ -350,7 +364,7 @@ def test_corr_window_per_level_matches_plain(cuda):
     for lvl in range(4):
         xl = xs[..., lvl].contiguous()
         before = corr_window.launches
-        got = corr_window(f1, levels[lvl], ii, jj, xl, w2ps[lvl])
+        got = corr_window(f1, levels[lvl], ii, jj, xl, w2ps[lvl], 80)
         assert corr_window.launches == before + 1
         assert got.shape == (12, 3200, 64)
         _assert_corr_close(got, corr_window_plain(f1, levels[lvl], ii, jj,
@@ -359,16 +373,105 @@ def test_corr_window_per_level_matches_plain(cuda):
                                              jj, xl, w2ps[lvl]))
 
 
+def _clamped_and_wrapping(xs, levels, w2ps):
+    """xs [4, HW, L] of smooth centres with: edge 0's first 128 pixels moved
+    6 padded rows up and edge 1's last 128 moved 8 down (their window rows
+    clamp at the level's first / last row), a few starts at +-10^6; edge
+    2's pixels 64-191 at column w2p - 3 of their padded row (the window
+    rows wrap into the next padded row)."""
+    xs = xs.clone()
+    for lvl, (lv, w2p) in enumerate(zip(levels, w2ps)):
+        xs[0, :128, lvl] -= 6 * w2p
+        xs[1, -128:, lvl] += 8 * w2p
+        xs[0, 5, lvl], xs[1, 7, lvl] = -10 ** 6, 10 ** 6
+        s = xs[2, 64:192, lvl]
+        xs[2, 64:192, lvl] = s - s % w2p + w2p - 3
+    return xs.contiguous()
+
+
+# (case, C): the box design's input cases; N, H, W, E, masked edges, centres
+BOX_CASES = {
+    "smooth": (26, 40, 80, 91, 16, "smooth"),   # a room0 frontend update
+    "scattered": (6, 12, 16, 5, 2, None),       # every tile on the row path
+    "step": (6, 40, 80, 3, 0, "step"),          # a depth step: both paths
+    "clamp_wrap": (6, 24, 32, 4, 1, "smooth"),  # clamped / wrapping starts
+    "ragged": (4, 13, 21, 4, 1, "smooth"),      # HW, W not multiples of 4
+    "e1": (2, 40, 80, 1, 0, "smooth"),          # the motion filter's edge
+}
+
+
+@pytest.mark.parametrize("case,C", [
+    ("smooth", 128), ("smooth", 64), ("smooth", 32), ("scattered", 128),
+    ("step", 128), ("clamp_wrap", 128), ("ragged", 128), ("e1", 128)])
+def test_corr_box_design_matches_plain(cuda, case, C):
+    """Kernels 2, 2b (box design) and 3, and the row design's entries,
+    against the plain versions on both paths of the box design; masked
+    edges exactly zero; the box-path share as the case makes it."""
+    N, H, W, E, n_masked, centres = BOX_CASES[case]
+    if case == "smooth" and C < 128:
+        N, H, W, E, n_masked = 6, 24, 32, 8, 2
+    coords = (None if centres is None else
+              smooth_coords(E, H, W, seed=C, step=25.0 * (centres == "step")))
+    f1, levels, ii, jj, xs, w2ps, mask = _corr_inputs(
+        N, H, W, E, n_masked, cuda, seed=C, C=C, coords=coords)
+    if case == "clamp_wrap":
+        xs = _clamped_and_wrapping(xs, levels, w2ps)
+    share = box_path_share(xs, [lv.shape[1] for lv in levels], w2ps, W, mask)
+    if case == "scattered":
+        assert max(share) < 0.1, share
+    elif case in ("step", "clamp_wrap"):
+        assert 0.0 < share[0] < 1.0, share
+    else:
+        assert min(share) > 0.9, share
+    args = (f1, levels, ii, jj, xs, w2ps)
+    counts = [w.launches for w in (corr_window_multilevel,
+                                   corr_window_multilevel_mma, corr_window)]
+    k2 = corr_window_multilevel(*args, W, mask=mask)
+    k2b = corr_window_multilevel_mma(*args, W, mask=mask)
+    rows = corr_window_multilevel_rows(*args, mask=mask)
+    rows_b = corr_window_multilevel_mma_rows(*args, mask=mask)
+    ref = corr_window_multilevel_plain(*args, mask=mask)
+    ref_b = corr_window_multilevel_mma_plain(*args, mask=mask)
+    mag = corr_window_multilevel_plain(f1.abs(), [lv.abs() for lv in levels],
+                                       ii, jj, xs, w2ps, mask=mask)
+    torch.cuda.synchronize()
+    tol, tol_b = CORR_RTOL * mag + 1e-7, MMA_RTOL * mag + 1e-7
+    for got, expect, t in ((k2, ref, tol), (rows, ref, tol),
+                           (k2b, ref_b, tol_b), (k2b, k2, tol_b),
+                           (rows_b, ref_b, tol_b)):
+        assert got.shape == (E, H * W, 4, 64)
+        assert bool(((got - expect).abs() <= t).all())
+        assert not got[mask == 0].any()
+    if E > n_masked:
+        assert k2.abs().max() > 0
+    for lvl in range(4):                  # kernel 3: one level per launch
+        xl = xs[..., lvl].contiguous()
+        got = corr_window(f1, levels[lvl], ii, jj, xl, w2ps[lvl], W)
+        _assert_corr_close(got, corr_window_plain(f1, levels[lvl], ii, jj,
+                                                  xl, w2ps[lvl]),
+                           corr_window_plain(f1.abs(), levels[lvl].abs(), ii,
+                                             jj, xl, w2ps[lvl]))
+    assert [w.launches for w in (corr_window_multilevel,
+                                 corr_window_multilevel_mma, corr_window)] \
+        == [counts[0] + 1, counts[1] + 1, counts[2] + 4]
+
+
 def test_corr_window_rejects_bad_inputs(cuda):
     f1, levels, ii, jj, xs, w2ps, mask = _corr_inputs(3, 12, 16, 2, 0, cuda,
                                                       C=48)
     with pytest.raises(ValueError, match="multiple of 32"):
-        corr_window_multilevel(f1, levels, ii, jj, xs, w2ps)
+        corr_window_multilevel(f1, levels, ii, jj, xs, w2ps, 16)
     f1, levels, ii, jj, xs, w2ps, mask = _corr_inputs(3, 12, 16, 2, 0, cuda)
     with pytest.raises(TypeError, match="int32"):
-        corr_window_multilevel(f1, levels, ii.long(), jj, xs, w2ps)
+        corr_window_multilevel(f1, levels, ii.long(), jj, xs, w2ps, 16)
     with pytest.raises(ValueError, match="f1_rows on"):
-        corr_window_multilevel(f1, levels, ii.cpu(), jj, xs, w2ps)
+        corr_window_multilevel(f1, levels, ii.cpu(), jj, xs, w2ps, 16)
+    with pytest.raises(ValueError, match="width"):
+        corr_window_multilevel(f1, levels, ii, jj, xs, w2ps, 10)
+    shifted = torch.empty(f1.numel() + 1, device=cuda)[1:].view(f1.shape)
+    shifted.copy_(f1)                      # contiguous, 4 bytes off 16
+    with pytest.raises(ValueError, match="aligned"):
+        corr_window_multilevel(shifted, levels, ii, jj, xs, w2ps, 16)
 
 
 def test_alt_corr_on_gpu_matches_cpu(cuda):
