@@ -46,8 +46,14 @@ Phases, each of which must pass (any failure exits non-zero):
      `prof_scatter.py` in fp32 and bf16): every variant checked against
      its plain version, then timed, with the launch counts set to 0 just
      before and read just after; the scatter probe also runs kernel 1 and
-     the blocked and bucketed scatters on one mapping iteration's real
-     index stream (every result in probes.json beside the profile tables).
+     the blocked and bucketed scatters (the thread-block cluster design at
+     every (T, CL) the card can hold, with its cudaOccupancyMaxActive-
+     Clusters, and the tile design of the first port) on one
+     mapping iteration's real index stream, with its busiest bucket
+     (every result in probes.json beside the profile tables; the stream's
+     indices in output/chip_smoke/real_stream.pt, the input of
+     `mneslam_tpu_torch/tools/scatter_ablation.py`). The phase's time is
+     printed beside its budget of 90 s.
 Prints the kernels' JSON line, then as the last line
 {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc; imports
 nothing of JAX.
@@ -132,9 +138,9 @@ def _wrappers():
     from mneslam_tpu_torch.kernels.scatter_add_rows import (
         scatter_add_rows, scatter_add_rows_per_warp)
     from mneslam_tpu_torch.kernels.scatter_rows_blocked import (
-        scatter_add_rows_blocked)
+        scatter_add_rows_blocked, scatter_add_rows_blocked_tiles)
     from mneslam_tpu_torch.kernels.scatter_rows_bucketed import (
-        scatter_add_rows_bucketed)
+        scatter_add_rows_bucketed, scatter_add_rows_bucketed_tiles)
 
     return {"scatter_add_rows": scatter_add_rows,
             "corr_window": corr_window_multilevel,
@@ -145,7 +151,10 @@ def _wrappers():
             "corr_window_rows": corr_window_multilevel_rows,
             "corr_window_mma_rows": corr_window_multilevel_mma_rows,
             "scatter_add_rows_blocked": scatter_add_rows_blocked,
-            "scatter_add_rows_bucketed": scatter_add_rows_bucketed}
+            "scatter_add_rows_bucketed": scatter_add_rows_bucketed,
+            "scatter_add_rows_blocked_tiles": scatter_add_rows_blocked_tiles,
+            "scatter_add_rows_bucketed_tiles":
+                scatter_add_rows_bucketed_tiles}
 
 
 def reset_launches():
@@ -784,20 +793,19 @@ def tpu_probes(real, card) -> dict:
     """Phase 11: the H100 counterparts of the TPU probes (`mneslam_tpu_torch/
     tools/prof_corr.py`, `prof_scatter.py` in fp32 and bf16), the scatter
     probe also on the `real` cases (tag, idx, vals, n_rows). Writes every
-    result to probes.json in OUT; raises SystemExit on a
-    wrong or failing variant. -> {"seconds", the extra keys of the
-    "scatter_add_rows" and "corr_window" entries, the two new kernels'
-    entries without their launch counts}."""
+    result to probes.json in OUT;
+    raises SystemExit on a wrong or failing variant. -> {"seconds", the
+    extra keys of the "scatter_add_rows" and "corr_window" entries, the
+    blocked and bucketed kernels' entries without their launch counts}."""
     import torch
 
-    from mneslam_tpu_torch.kernels.scatter_rows_blocked import (
-        DEFAULT_TILE_ROWS)
+    from mneslam_tpu_torch.kernels.scatter_cluster import (
+        DEFAULT_CLUSTER, DEFAULT_TILE_ROWS, TILES_TILE_ROWS)
     from mneslam_tpu_torch.tools import prof_corr, prof_scatter
 
     t0 = time.perf_counter()
     corr = prof_corr.run("cuda", log=log)
-    # K = 10 calls per timed run (the probe's own default is 20), to keep
-    # this phase near a minute
+    # K = 10 calls per timed run (the probe's own default is 20)
     scat = prof_scatter.run("cuda", cases=real, reps=10, log=log)
     scat_bf16 = prof_scatter.run("cuda", bf16=True, reps=10, log=log)
     torch.cuda.synchronize()
@@ -814,10 +822,14 @@ def tpu_probes(real, card) -> dict:
         f"{not unequal} (unequal: {unequal}); box path share by level "
         f"{corr['box_share']}")
 
+    tags = [tag for tag, _, _, _ in real]
+
     def real_sum(variant, key="ms"):
-        """A variant's `key` summed over the real stream's calls."""
-        return sum(v[key] for k, v in scat.items()
-                   if k.startswith("real:") and k.endswith(f"/{variant}"))
+        """A variant's `key` summed over the real stream's calls (None if
+        it did not run on all of them)."""
+        vals = [scat.get(f"{tag}/{variant}") for tag in tags]
+        vals = [v.get(key) if isinstance(v, dict) else None for v in vals]
+        return None if None in vals else sum(vals)
 
     def max_err(prefix):
         return max(v["max_abs_err"] for res in (scat, scat_bf16)
@@ -825,39 +837,97 @@ def tpu_probes(real, card) -> dict:
                    and "max_abs_err" in v
                    and k.split("/")[-1].startswith(prefix))
 
-    tiles = prof_scatter.TILES
+    occupancy = scat["max_active_clusters"]
+    log("cudaOccupancyMaxActiveClusters at width 128 (fp32, int64 "
+        "indices): " + ", ".join(f"{k} {v}" for k, v in occupancy.items()))
+    loads = {tag: scat[f"{tag}/tiles"] for tag in tags}
+    log("real index stream, busiest 64-row tile / busiest bucket of "
+        f"{prof_scatter.BUCKET_ROWS} rows per call: "
+        + ", ".join(f"{tag.split(':')[1]} {v['busiest']} / "
+                    f"{v['busiest_bucket']} of {v['buckets']}"
+                    for tag, v in loads.items()))
+    T, CL, TT = DEFAULT_TILE_ROWS, DEFAULT_CLUSTER, TILES_TILE_ROWS
+
+    def by_config(variant, suffix=""):
+        """ms on the real stream of each configuration that ran."""
+        times = {f"T{t}C{cl}": real_sum(f"{variant}T{t}C{cl}{suffix}")
+                 for t, cl in prof_scatter.CONFIGS}
+        return {k: v for k, v in times.items() if v is not None}
+
+    def fastest(times):
+        return min(times, key=times.get) if times else None
+
+    def fmt(times):
+        return {k: round(v, 4) for k, v in times.items()}
+
+    blocked_ms = by_config("blocked")
+    bucket_ms = by_config("bucket")
+    presorted_ms = by_config("bucket", "_presorted")
     log(f"real index stream, sum of one iteration's {len(real)} calls (ms): "
         f"kernel 1 {real_sum('kernel1'):.4f}; serialU8/16/32 "
         f"{[round(real_sum(f'serialU{u}'), 4) for u in (8, 16, 32)]}; "
-        f"blocked T {list(tiles)} "
-        f"{[round(real_sum(f'blockedT{t}'), 4) for t in tiles]}; bucketed "
-        f"{[round(real_sum(f'bucketT{t}'), 4) for t in tiles]}; presorted "
-        f"{[round(real_sum(f'bucketT{t}_presorted'), 4) for t in tiles]}; "
-        f"route {real_sum('route'):.4f}; index_add_ {real_sum('xla'):.4f}; "
-        f"bound {real_sum('kernel1', 'bound_ms'):.4f}")
-    T = DEFAULT_TILE_ROWS
+        f"blocked cluster {fmt(blocked_ms)}, tiles T{TT} "
+        f"{real_sum(f'blockedT{TT}'):.4f}; bucketed cluster "
+        f"{fmt(bucket_ms)}, tiles T{TT} {real_sum(f'bucketT{TT}'):.4f}; "
+        f"presorted cluster {fmt(presorted_ms)}, tiles T{TT} "
+        f"{real_sum(f'bucketT{TT}_presorted'):.4f}; route "
+        f"{real_sum('route'):.4f}, tile route "
+        f"{real_sum('route_tiles'):.4f}; index_add_ {real_sum('xla'):.4f}; "
+        f"bound {real_sum('kernel1', 'bound_ms'):.4f}; fastest "
+        f"configuration: blocked {fastest(blocked_ms)}, bucketed "
+        f"{fastest(bucket_ms)}, presorted {fastest(presorted_ms)} "
+        f"(default T{T}C{CL})")
     tol = (f"{prof_scatter.SCATTER_RTOL:g} x sum|vals| + "
            f"{prof_scatter.SCATTER_ATOL:g} (+ one bf16 ulp)")
 
-    def entry(name, source, replaces, variant, plain, timed_as):
+    def synthetic(variant, key):
+        v = scat.get(f"fine@11.5k/{variant}")
+        return v[key] if isinstance(v, dict) else None
+
+    def entry(name, source, replaces, variant, plain, times, timed_as):
+        ours, tiles_v = f"{variant}T{T}C{CL}", f"{variant}T{TT}"
         return {"name": name, "route": "cuda",
                 "source": f"mneslam_tpu_torch/kernels/csrc/{source}",
-                "replaces": replaces, "max_abs_err": max_err(variant),
-                "tolerance": tol, "ms": real_sum(f"{variant}T{T}"),
+                "replaces": replaces, "design": "cluster",
+                "tile_rows": T, "cluster": CL,
+                "max_abs_err": max_err(variant),
+                "tolerance": tol, "ms": real_sum(ours),
+                "graph_ms": real_sum(ours, "graph_ms"),
                 "plain_ms": real_sum(plain),
-                "bound_ms": real_sum(f"{variant}T{T}", "bound_ms"),
+                "bound_ms": real_sum(ours, "bound_ms"),
                 "bound_by": "bytes", "library_ms": real_sum("xla"),
+                "tiles_ms": real_sum(tiles_v),
+                "tiles_graph_ms": real_sum(tiles_v, "graph_ms"),
+                "ms_by_config": times,
+                "fastest_config": fastest(times),
+                "max_active_clusters": {
+                    k: v for k, v in occupancy.items()
+                    if k.startswith(variant)},
+                "busiest_bucket": max(v["busiest_bucket"]
+                                      for v in loads.values()),
+                "fine11k_graph_ms": synthetic(ours, "graph_ms"),
+                "fine11k_tiles_graph_ms": synthetic(tiles_v, "graph_ms"),
+                "fine11k_bound_ms": synthetic(ours, "bound_ms"),
+                "fine11k_library_graph_ms": synthetic("xla", "graph_ms"),
                 "timed_as": f"sum of one mapping iteration's {len(real)} "
                             f"calls on the real index stream, {timed_as}"
-                            f"tiles of {T} rows",
-                "ms_by_tile": {t: real_sum(f"{variant}T{t}")
-                               for t in tiles}}
+                            f"buckets of {CL} x {T} rows; tiles_ms: the "
+                            f"tile design of the first port, T = {TT}"}
 
-    bucketed = entry("scatter_add_rows_bucketed", "scatter_rows_bucketed.cu",
-                     "tools/prof_scatter_bucketed.py:82", "bucket",
-                     "bucket_plain", "route included, ")
-    bucketed.update(route_ms=real_sum("route"),
-                    presorted_ms=real_sum(f"bucketT{T}_presorted"))
+    bucket_entry = entry("scatter_add_rows_bucketed",
+                         "scatter_rows_bucketed.cu",
+                         "tools/prof_scatter_bucketed.py:82", "bucket",
+                         "bucket_plain", bucket_ms, "route included, ")
+    ours = f"bucketT{T}C{CL}_presorted"
+    bucket_entry.update(
+        route_ms=real_sum("route"), route_tiles_ms=real_sum("route_tiles"),
+        presorted_ms=real_sum(ours),
+        presorted_graph_ms=real_sum(ours, "graph_ms"),
+        tiles_presorted_ms=real_sum(f"bucketT{TT}_presorted"),
+        presorted_ms_by_config=presorted_ms,
+        fine11k_presorted_graph_ms=synthetic(ours, "graph_ms"),
+        fine11k_tiles_presorted_graph_ms=synthetic(
+            f"bucketT{TT}_presorted", "graph_ms"))
     return {
         "seconds": seconds,
         "scatter_add_rows": {
@@ -876,8 +946,8 @@ def tpu_probes(real, card) -> dict:
         "scatter_add_rows_blocked": entry(
             "scatter_add_rows_blocked", "scatter_rows_blocked.cu",
             "tools/prof_pallas_scatter.py:61", "blocked", "blocked_plain",
-            ""),
-        "scatter_add_rows_bucketed": bucketed,
+            blocked_ms, ""),
+        "scatter_add_rows_bucketed": bucket_entry,
     }
 
 
@@ -1273,6 +1343,9 @@ def main():
     #     and read just after
     real = [(f"real:{name}", idx, vals, n_rows)
             for name, idx, vals, n_rows in path_scatter_inputs(slam, gen)]
+    os.makedirs(RUN_OUT, exist_ok=True)
+    torch.save([(tag, idx.cpu(), n_rows) for tag, idx, _, n_rows in real],
+               os.path.join(RUN_OUT, "real_stream.pt"))
     reset_launches()
     probes = tpu_probes(real, card)
     probe_launches = read_launches()
@@ -1282,6 +1355,10 @@ def main():
     for name in ("scatter_add_rows_blocked", "scatter_add_rows_bucketed"):
         probes[name]["launches"] = probe_launches[name]
         probes[name]["launches_by_path"] = {"probes": probe_launches[name]}
+        probes[name]["tiles_launches"] = probe_launches[f"{name}_tiles"]
+    log(f"probe phase {probes['seconds']:.1f} s of its budget of 90 s"
+        + (": OVER BUDGET, trim the sweep" if probes["seconds"] > 90
+           else ""))
 
     kernels = [{
         "name": "scatter_add_rows",
@@ -1349,6 +1426,11 @@ def main():
     idle = [k["name"] for k in kernels if not k["launches"] >= 1]
     if idle:
         raise SystemExit(f"kernels never launched on their path: {idle}")
+    unmeasured = [f"{k['name']}.{key}" for k in kernels
+                  for key in ("ms", "plain_ms", "bound_ms", "max_abs_err")
+                  if k[key] is None]
+    if unmeasured:
+        raise SystemExit(f"kernel numbers not measured: {unmeasured}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

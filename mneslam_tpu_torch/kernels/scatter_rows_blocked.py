@@ -1,18 +1,26 @@
-"""`zeros((n_rows, width)).index_add_(0, idx, vals)`, built tile by tile.
+"""`zeros((n_rows, width)).index_add_(0, idx, vals)`, built bucket by bucket.
 
 Port of the Pallas kernel of the TPU probe tools/prof_pallas_scatter.py
 (`make_pallas_scatter`: the output table in `n_blocks` row blocks, every
 block re-walking all updates with predicated writes). On a CUDA tensor the
-wrapper launches the hand-written kernel in `csrc/scatter_rows_blocked.cu`
-(or raises): one block per tile of `tile_rows` rows in shared memory, the
-stand-in for the TPU probe's `n_blocks`. On a CPU tensor it runs the plain
-PyTorch version below. There is no size gate and no fallback.
+wrapper `scatter_add_rows_blocked` launches the hand-written kernel in
+`csrc/scatter_rows_blocked.cu` (or raises) in the cluster design: a
+thread-block cluster of `cluster` blocks owns a bucket of
+`cluster * tile_rows` rows, the stand-in for the TPU probe's `n_blocks`;
+each block holds `tile_rows` of them in shared memory, every block of the
+cluster adds into the owner's through distributed shared memory, and the
+cluster walks idx once (`csrc/scatter_cluster.cuh`). The first port's tile
+design (one block per tile, each re-walking idx) stays reachable as
+`scatter_add_rows_blocked_tiles`, so that one run can time both. On a CPU
+tensor both run the plain PyTorch version below. There is no size gate and
+no fallback.
 
 Contract, the same on both paths and the same as `scatter_add_rows`: idx
 [nu] int32 or int64, vals [nu, width] float32 or bfloat16, result
 [n_rows, width] in vals' dtype, with sums taken in float32. An idx outside
 [0, n_rows) is dropped. `tile_rows * width` fp32 must fit a block's shared
-memory (227 KB).
+memory (227 KB); `cluster` is one of CLUSTERS (`scatter_cluster.py`, the
+sizes and defaults both row scatters share).
 """
 
 from __future__ import annotations
@@ -23,41 +31,15 @@ from typing import Optional
 import torch
 
 from .scatter_add_rows import _check
+from .scatter_cluster import (TILES_TILE_ROWS, check_cluster, check_tile,
+                              n_tiles, occupancy)
 
-SMEM_BYTES = 232448         # shared memory a Hopper block can use (227 KB)
-DEFAULT_TILE_ROWS = 64      # the fastest of 64-384 on the H100 (PERF.md)
-
-
-def default_tile_rows(width: int) -> int:
-    """DEFAULT_TILE_ROWS, or fewer where a wide row would not fit shared
-    memory."""
-    return max(1, min(DEFAULT_TILE_ROWS, SMEM_BYTES // (4 * max(width, 1))))
-
-
-def check_tile(vals: torch.Tensor, tile_rows: Optional[int]) -> int:
-    """The tile height to use (`default_tile_rows` for None); raises on a
-    tile that does not fit a block's shared memory."""
-    width = vals.shape[1]
-    t = default_tile_rows(width) if tile_rows is None else int(tile_rows)
-    if t < 1 or t * width * 4 > SMEM_BYTES:
-        raise ValueError(f"tile_rows {t} x width {width} x 4 B does not fit "
-                         f"{SMEM_BYTES} B of shared memory")
-    return t
-
-
-def n_tiles(n_rows: int, tile_rows: int) -> int:
-    return -(-n_rows // tile_rows)
-
-
-def scatter_add_rows_blocked_plain(idx: torch.Tensor, vals: torch.Tensor,
-                                   n_rows: int,
-                                   tile_rows: Optional[int] = None
-                                   ) -> torch.Tensor:
-    """The plain PyTorch version over the same blocks: a float32 table of
-    n_tiles * tile_rows rows (row r in tile r // tile_rows), `index_add_`
-    of the updates that land in it, the pad rows sliced off."""
-    t = check_tile(vals, tile_rows)
-    padded = n_tiles(n_rows, t) * t
+def _padded_plain(idx: torch.Tensor, vals: torch.Tensor, n_rows: int,
+                 bucket_rows: int) -> torch.Tensor:
+    """`index_add_` into a float32 table padded to whole buckets of
+    `bucket_rows` rows (row r in bucket r // bucket_rows), the pad rows
+    sliced off, in vals' dtype."""
+    padded = n_tiles(n_rows, bucket_rows) * bucket_rows
     idx = idx.long()
     keep = (idx >= 0) & (idx < padded)
     table = torch.zeros((padded, vals.shape[1]), dtype=torch.float32,
@@ -66,15 +48,27 @@ def scatter_add_rows_blocked_plain(idx: torch.Tensor, vals: torch.Tensor,
     return table[:n_rows].to(vals.dtype)
 
 
-def _launch_cuda(idx: torch.Tensor, vals: torch.Tensor, n_rows: int,
-                 tile_rows: int) -> torch.Tensor:
+def scatter_add_rows_blocked_plain(idx: torch.Tensor, vals: torch.Tensor,
+                                   n_rows: int,
+                                   tile_rows: Optional[int] = None,
+                                   cluster: Optional[int] = None
+                                   ) -> torch.Tensor:
+    """The plain PyTorch version over the cluster design's buckets of
+    cluster * tile_rows rows."""
+    t = check_tile(vals, tile_rows)
+    return _padded_plain(idx, vals, n_rows, t * check_cluster(cluster))
+
+
+def _launch(entry: str, idx: torch.Tensor, vals: torch.Tensor, n_rows: int,
+            *sizes: int) -> torch.Tensor:
+    """Launch C entry `entry` of scatter_rows_blocked.cu with the size
+    arguments `sizes` (tile_rows, and the cluster size for the cluster
+    design)."""
     from . import build
 
-    fn = build.load("scatter_rows_blocked").scatter_rows_blocked
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                   ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                   ctypes.c_void_p]
+    fn = getattr(build.load("scatter_rows_blocked"), entry)
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * (5 + len(sizes))
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     idx = idx.contiguous()
     vals = vals.contiguous()
@@ -84,29 +78,62 @@ def _launch_cuda(idx: torch.Tensor, vals: torch.Tensor, n_rows: int,
                           device=vals.device)
         stream = torch.cuda.current_stream(vals.device).cuda_stream
         err = fn(idx.data_ptr(), vals.data_ptr(), out.data_ptr(), nu, width,
-                 n_rows, tile_rows, int(vals.dtype == torch.bfloat16),
+                 n_rows, *sizes, int(vals.dtype == torch.bfloat16),
                  int(idx.dtype == torch.int64), stream)
     if err != 0:
-        raise RuntimeError(f"scatter_rows_blocked kernel launch failed: "
-                           f"cudaError {err}")
+        raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
     return out
 
 
+def max_active_clusters(width: int, tile_rows: int, cluster: int,
+                        dtype: torch.dtype = torch.float32,
+                        idx_dtype: torch.dtype = torch.int64) -> int:
+    """cudaOccupancyMaxActiveClusters of the cluster kernel at (width,
+    tile_rows, cluster) on the current GPU: the clusters it holds at once.
+    Raises on a query the runtime refuses."""
+    return occupancy("scatter_rows_blocked", width, tile_rows, cluster,
+                     dtype, idx_dtype)
+
+
 def scatter_add_rows_blocked(idx: torch.Tensor, vals: torch.Tensor,
-                             n_rows: int,
-                             tile_rows: Optional[int] = None) -> torch.Tensor:
-    """`zeros((n_rows, width)).at[idx].add(vals)` in tiles of `tile_rows`
-    rows: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors. `scatter_add_rows_blocked.launches` counts kernel launches."""
+                             n_rows: int, tile_rows: Optional[int] = None,
+                             cluster: Optional[int] = None) -> torch.Tensor:
+    """`zeros((n_rows, width)).at[idx].add(vals)` in buckets of
+    cluster * tile_rows rows, one thread-block cluster each: the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors.
+    `scatter_add_rows_blocked.launches` counts kernel launches."""
     _check(idx, vals, n_rows)
     t = check_tile(vals, tile_rows)
+    cl = check_cluster(cluster)
     if vals.device.type == "cuda":
-        out = _launch_cuda(idx, vals, n_rows, t)
+        out = _launch("scatter_rows_blocked_cluster", idx, vals, n_rows, t,
+                      cl)
         scatter_add_rows_blocked.launches += 1
         return out
     if vals.device.type == "cpu":
-        return scatter_add_rows_blocked_plain(idx, vals, n_rows, t)
+        return _padded_plain(idx, vals, n_rows, t * cl)
+    raise ValueError(f"unsupported device {vals.device}")
+
+
+def scatter_add_rows_blocked_tiles(idx: torch.Tensor, vals: torch.Tensor,
+                                   n_rows: int,
+                                   tile_rows: Optional[int] = None
+                                   ) -> torch.Tensor:
+    """The tile design of the first port: one block per tile of
+    `tile_rows` rows (TILES_TILE_ROWS for None), each walking all of idx.
+    CUDA kernel for CUDA tensors, the plain version over the same tiles for
+    CPU tensors. `scatter_add_rows_blocked_tiles.launches` counts kernel
+    launches."""
+    _check(idx, vals, n_rows)
+    t = check_tile(vals, tile_rows, TILES_TILE_ROWS)
+    if vals.device.type == "cuda":
+        out = _launch("scatter_rows_blocked", idx, vals, n_rows, t)
+        scatter_add_rows_blocked_tiles.launches += 1
+        return out
+    if vals.device.type == "cpu":
+        return _padded_plain(idx, vals, n_rows, t)
     raise ValueError(f"unsupported device {vals.device}")
 
 
 scatter_add_rows_blocked.launches = 0
+scatter_add_rows_blocked_tiles.launches = 0

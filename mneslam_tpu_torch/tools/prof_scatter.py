@@ -5,33 +5,46 @@
 The counterpart of the two TPU probes `tools/prof_pallas_scatter.py` and
 `tools/prof_scatter_bucketed.py`, with their shapes (width 128; the five
 (rows, updates) shapes of the first, which include the three of the
-second) and their variant lists. Each TPU variant and its H100 counterpart:
+second) and their variant lists. Each TPU variant and its H100 counterparts:
 
   TPU probe variant            H100 variant (this probe)
   xla                          xla: one `index_add_` into a zeroed table in
                                vals' dtype (with --bf16 a bf16 table, as
                                the TPU's bf16 `.at[].add`)
-  pallasU8 (one VMEM block,    blockedT{64,128,256,384}: the blocked kernel
-  8-wide unroll), and the      (`kernels/scatter_rows_blocked.py`), one
-  docstring's pallas1 /        block per tile of T rows in shared memory;
-  pallasB<k> / pallasU         T stands in for the TPU's n_blocks
-  pallasF32acc (--bf16)        blockedT{...} with --bf16: bf16 values
-                               summed in fp32 in shared memory
+  pallasU8 (one VMEM block,    blockedT{T}C{CL}: the blocked kernel in the
+  8-wide unroll), and the      cluster design (`scatter_add_rows_blocked`),
+  docstring's pallas1 /        one cluster of CL blocks per bucket of
+  pallasB<k> / pallasU         CL x T rows, T rows per block in shared
+                               memory; the bucket stands in for the TPU's
+                               n_blocks. blockedT64: the tile design of
+                               the first port
+                               (`scatter_add_rows_blocked_tiles`), one
+                               block per tile of 64 rows
+  pallasF32acc (--bf16)        the same with --bf16: bf16 values summed in
+                               fp32 in shared memory
   serialU8 / U16 / U32         serialU8 / U16 / U32: kernel 1 with 8, 16, 32
                                updates per warp (`scatter_add_rows_per_warp`)
-  bucket{2,4,8,16}             bucketT{64,128,256,384}: the bucketed kernel
-                               (`kernels/scatter_rows_bucketed.py`) with its
-                               route; a TPU bucket of 10k-80k rows does not
-                               fit a block, a tile of T rows does
+  bucket{2,4,8,16}             bucketT{T}C{CL}: the bucketed kernel in the
+                               cluster design (`scatter_add_rows_bucketed`)
+                               with its route; bucketT64: the tile
+                               design (`scatter_add_rows_bucketed_tiles`)
+                               with its route. A TPU bucket of 10k-80k rows
+                               does not fit a block or a cluster
   bucket{b}_presorted          bucketT{...}_presorted: inputs sorted first,
                                the route's sort skipped
+The cluster configurations are CONFIGS (T x CL); on a GPU only those for
+which cudaOccupancyMaxActiveClusters reports at least 1 run, and the count
+is printed for each; the default (T, CL) must be among them, or the probe
+fails. The tile design runs at TILES.
 Added here: kernel1 (the production entry `scatter_add_rows`, the yardstick
-of every variant), route (the bucketed route alone: sort, permute,
-offsets, so that route and walk can be told apart), blocked_plain and
-bucket_plain (the plain versions at T = 64), the spread of the updates
-over tiles (`tile_load`), and every case the caller
-passes to `run(cases=...)` (`chip_smoke.py` passes the mapping path's real
-index stream).
+of every variant), route (the cluster design's route alone: stable sort,
+offsets; no permuted copy of vals) and route_tiles (the tile design's:
+sort, permute vals, offsets), so that route and walk can be told apart,
+blocked_plain and bucket_plain (the plain versions at the default
+(T, CL)), the spread of the updates (`tile_load`: over tiles of 64 rows
+and over the default buckets), and every case the caller passes
+to `run(cases=...)` (`chip_smoke.py` passes the mapping path's real index
+stream).
 
 Protocol: each variant is first checked against the plain float32 sums
 (`scatter_add_rows_plain`), per output within SCATTER_RTOL x the sum of the
@@ -64,12 +77,15 @@ from ..device import resolve_device
 from ..kernels.scatter_add_rows import (scatter_add_rows,
                                         scatter_add_rows_per_warp,
                                         scatter_add_rows_plain)
-from ..kernels.scatter_rows_blocked import (DEFAULT_TILE_ROWS, n_tiles,
-                                            scatter_add_rows_blocked,
-                                            scatter_add_rows_blocked_plain)
-from ..kernels.scatter_rows_bucketed import (bucket_route,
-                                             scatter_add_rows_bucketed,
-                                             scatter_add_rows_bucketed_plain)
+from ..kernels import scatter_rows_blocked, scatter_rows_bucketed
+from ..kernels.scatter_cluster import (DEFAULT_CLUSTER, DEFAULT_TILE_ROWS,
+                                       n_tiles)
+from ..kernels.scatter_rows_blocked import (
+    scatter_add_rows_blocked, scatter_add_rows_blocked_plain,
+    scatter_add_rows_blocked_tiles)
+from ..kernels.scatter_rows_bucketed import (
+    bucket_route, cluster_route, scatter_add_rows_bucketed,
+    scatter_add_rows_bucketed_plain, scatter_add_rows_bucketed_tiles)
 from .measure import bound_ms, graph_ms, median_ms
 
 WIDTH = 128
@@ -77,7 +93,10 @@ SHAPES = (("fine@11.5k", 160801, 11567), ("coarse@11.5k", 40401, 11567),
           ("fine@5.8k", 160801, 5784), ("fine@23k", 160801, 23134),
           ("fine@92k", 160801, 92536))
 SMALL = 400                 # --small: rows and updates divided by this
-TILES = (64, 128, 256, 384)
+TILES = (64,)   # the tile design, at its fastest tile of 64-384 (PERF.md)
+CONFIGS = tuple((t, cl) for t in (224, 448) for cl in (4, 8, 16))  # T, CL
+TILE_LOAD_ROWS = 64             # the tile of `tile_load`'s busiest tile
+BUCKET_ROWS = DEFAULT_CLUSTER * DEFAULT_TILE_ROWS   # the default bucket
 PER_WARP = (8, 16, 32)
 K = 20                      # calls per timed run
 WALLS = 5                   # timed runs; the median is reported
@@ -85,13 +104,17 @@ SCATTER_RTOL = 5e-5
 SCATTER_ATOL = 1e-6
 
 # each TPU probe variant -> the names of its H100 counterparts
+BLOCKED = [f"blockedT{t}C{cl}" for t, cl in CONFIGS] + [
+    f"blockedT{t}" for t in TILES]
+BUCKETED = [f"bucketT{t}C{cl}" for t, cl in CONFIGS] + [
+    f"bucketT{t}" for t in TILES]
 TPU_COUNTERPARTS = {
     "xla": ["xla"],
-    "pallasU8": [f"blockedT{t}" for t in TILES],
-    "pallasF32acc": [f"blockedT{t}" for t in TILES],
+    "pallasU8": BLOCKED,
+    "pallasF32acc": BLOCKED,
     **{f"serialU{u}": [f"serialU{u}"] for u in PER_WARP},
-    **{f"bucket{b}": [f"bucketT{t}" for t in TILES] for b in (2, 4, 8, 16)},
-    **{f"bucket{b}_presorted": [f"bucketT{t}_presorted" for t in TILES]
+    **{f"bucket{b}": BUCKETED for b in (2, 4, 8, 16)},
+    **{f"bucket{b}_presorted": [f"{v}_presorted" for v in BUCKETED]
        for b in (2, 4, 8, 16)},
 }
 
@@ -124,46 +147,85 @@ def scatter_bound(idx: torch.Tensor, vals: torch.Tensor, n_rows: int):
     return bound_ms(nbytes, nu * width)
 
 
-def route_bound(idx: torch.Tensor, vals: torch.Tensor, n_rows: int):
-    """The route's bytes: idx and vals read once, sorted idx, the
-    permutation (int64), permuted vals and the offsets written once."""
+def route_bound(idx: torch.Tensor, vals: torch.Tensor, n_rows: int,
+                bucket_rows: int, permute_vals: bool = False):
+    """The route's bytes: idx read once, the sorted idx, the permutation
+    (int64) and the offsets written once; with `permute_vals` (the tile
+    design's route) also vals read and its permuted copy written."""
     nu, width = vals.shape
-    nt = n_tiles(n_rows, DEFAULT_TILE_ROWS)
-    nbytes = (2 * nu * idx.element_size() + 8 * nu
-              + 2 * nu * width * vals.element_size() + 8 * (nt + 1))
+    nb = n_tiles(n_rows, bucket_rows)
+    nbytes = 2 * nu * idx.element_size() + 8 * nu + 8 * (nb + 1)
+    if permute_vals:
+        nbytes += 2 * nu * width * vals.element_size()
     return bound_ms(nbytes)
 
 
 def tile_load(idx: torch.Tensor, n_rows: int) -> Dict:
-    """How the updates spread over tiles of DEFAULT_TILE_ROWS rows: the
-    tiles, those that hold updates, and the most updates one tile holds
-    (the blocked and bucketed kernels work a tile on one SM)."""
-    nt = n_tiles(n_rows, DEFAULT_TILE_ROWS)
+    """How the updates spread: over tiles of TILE_LOAD_ROWS rows (the tile
+    design works a tile on one SM): the tiles, those that hold updates,
+    the most one tile holds; over the default buckets (BUCKET_ROWS rows,
+    one cluster each): the buckets, their rows, the most one bucket
+    holds."""
     keep = (idx >= 0) & (idx < n_rows)
-    count = torch.bincount(idx[keep].long() // DEFAULT_TILE_ROWS,
-                           minlength=nt)
-    return {"tiles": nt, "hit": int((count > 0).sum()),
-            "busiest": int(count.max()) if nt else 0}
+    rows = idx[keep].long()
+
+    def counts(size):
+        return torch.bincount(rows // size, minlength=n_tiles(n_rows, size))
+
+    tiles = counts(TILE_LOAD_ROWS)
+    buckets = counts(BUCKET_ROWS)
+    return {"tiles": tiles.numel(), "hit": int((tiles > 0).sum()),
+            "busiest": int(tiles.max()) if tiles.numel() else 0,
+            "buckets": buckets.numel(), "bucket_rows": BUCKET_ROWS,
+            "busiest_bucket": int(buckets.max()) if buckets.numel() else 0}
 
 
-def _variants(idx, vals, n_rows, idx_s, vals_s
+def cluster_occupancy(vals: torch.Tensor, idx: torch.Tensor) -> Dict:
+    """cudaOccupancyMaxActiveClusters of both cluster kernels at every
+    configuration of CONFIGS, for these inputs' dtypes -> {"blockedT{T}C
+    {CL}" / "bucketT{T}C{CL}": clusters}."""
+    width = vals.shape[1]
+    return {f"{name}T{t}C{cl}": module.max_active_clusters(
+                width, t, cl, vals.dtype, idx.dtype)
+            for name, module in (("blocked", scatter_rows_blocked),
+                                 ("bucket", scatter_rows_bucketed))
+            for t, cl in CONFIGS}
+
+
+def _variants(idx, vals, n_rows, idx_s, vals_s, runs=lambda name: True
               ) -> List[Tuple[str, Callable[[], torch.Tensor]]]:
+    """Every variant on these inputs; `runs(name)` False leaves a cluster
+    configuration out (one the card cannot hold)."""
     dev, dtype = vals.device, vals.dtype
     out = [("xla", lambda: torch.zeros((n_rows, vals.shape[1]), dtype=dtype,
                                        device=dev).index_add_(0, idx, vals)),
            ("kernel1", lambda: scatter_add_rows(idx, vals, n_rows))]
     out += [(f"serialU{u}", lambda u=u: scatter_add_rows_per_warp(
         idx, vals, n_rows, u)) for u in PER_WARP]
-    out += [(f"blockedT{t}", lambda t=t: scatter_add_rows_blocked(
+    for t, cl in CONFIGS:
+        if runs(f"blockedT{t}C{cl}"):
+            out.append((f"blockedT{t}C{cl}",
+                        lambda t=t, cl=cl: scatter_add_rows_blocked(
+                            idx, vals, n_rows, t, cl)))
+        if runs(f"bucketT{t}C{cl}"):
+            out += [(f"bucketT{t}C{cl}",
+                     lambda t=t, cl=cl: scatter_add_rows_bucketed(
+                         idx, vals, n_rows, t, cluster=cl)),
+                    (f"bucketT{t}C{cl}_presorted",
+                     lambda t=t, cl=cl: scatter_add_rows_bucketed(
+                         idx_s, vals_s, n_rows, t, presorted=True,
+                         cluster=cl))]
+    out += [(f"blockedT{t}", lambda t=t: scatter_add_rows_blocked_tiles(
         idx, vals, n_rows, t)) for t in TILES]
-    out += [(f"bucketT{t}", lambda t=t: scatter_add_rows_bucketed(
+    out += [(f"bucketT{t}", lambda t=t: scatter_add_rows_bucketed_tiles(
         idx, vals, n_rows, t)) for t in TILES]
-    out += [(f"bucketT{t}_presorted", lambda t=t: scatter_add_rows_bucketed(
-        idx_s, vals_s, n_rows, t, presorted=True)) for t in TILES]
+    out += [(f"bucketT{t}_presorted",
+             lambda t=t: scatter_add_rows_bucketed_tiles(
+                 idx_s, vals_s, n_rows, t, presorted=True)) for t in TILES]
     out += [("blocked_plain", lambda: scatter_add_rows_blocked_plain(
-                idx, vals, n_rows, DEFAULT_TILE_ROWS)),
+                idx, vals, n_rows)),
             ("bucket_plain", lambda: scatter_add_rows_bucketed_plain(
-                idx, vals, n_rows, DEFAULT_TILE_ROWS))]
+                idx, vals, n_rows))]
     return out
 
 
@@ -178,12 +240,24 @@ def _tolerance(name, idx, vals, n_rows, ref, mag):
     return tol
 
 
-def _check_route(idx, vals, n_rows):
-    idx_s, vals_s, off = bucket_route(idx, vals, n_rows, DEFAULT_TILE_ROWS)
+def _routes(idx, vals, n_rows):
+    """Both routes at their default sizes, checked -> (idx sorted, vals in
+    that order, ok, {name: the route as a function})."""
+    bucket = BUCKET_ROWS
+    idx_s, perm, off = cluster_route(idx, n_rows, bucket)
+    t_s, vals_s, t_off = bucket_route(idx, vals, n_rows, TILES[0])
     ok = (bool((idx_s[1:] >= idx_s[:-1]).all())
+          and bool((idx[perm] == idx_s).all())
+          and bool((perm.sort().values == torch.arange(
+              perm.numel(), device=perm.device)).all())
+          and bool((t_s == idx_s).all())
           and bool((off[1:] >= off[:-1]).all())
-          and off.shape[0] == n_tiles(n_rows, DEFAULT_TILE_ROWS) + 1)
-    return idx_s, vals_s, off, ok
+          and off.shape[0] == n_tiles(n_rows, bucket) + 1
+          and t_off.shape[0] == n_tiles(n_rows, TILES[0]) + 1)
+    return t_s, vals_s, ok, {
+        "route": (lambda: cluster_route(idx, n_rows, bucket), bucket, False),
+        "route_tiles": (lambda: bucket_route(idx, vals, n_rows, TILES[0]),
+                        TILES[0], True)}
 
 
 def _fmt(g_ms):
@@ -194,9 +268,11 @@ def run(device="cuda", bf16: bool = False, small: bool = False,
         cases: Iterable[Case] = (), reps: int = None, walls: int = None,
         log: Callable[[str], None] = print) -> Dict:
     """Check, then time, every variant on the TPU probes' shapes and on
-    each extra case (tag, idx, vals, n_rows) -> {"device", "bf16", "failed":
-    [names], "<tag>/<variant>": {"ms", "bound_ms", "bound_by",
-    "max_abs_err", "err_ratio"} or "wrong: ..." / "failed: ..."}."""
+    each extra case (tag, idx, vals, n_rows) ->
+    {"device", "bf16", "failed": [names], "max_active_clusters" (on a
+    GPU), "<tag>/tiles": `tile_load`, "<tag>/<variant>": {"ms",
+    "graph_ms", "bound_ms", "bound_by", "max_abs_err", "err_ratio"} or
+    "wrong: ..." / "failed: ..."}."""
     dev = resolve_device(device)
     dtype = torch.bfloat16 if bf16 else torch.float32
     on_gpu = dev.type == "cuda"
@@ -210,14 +286,32 @@ def run(device="cuda", bf16: bool = False, small: bool = False,
     all_cases = synthetic_cases(dev, dtype, small) + [
         (tag, i.to(dev), v.to(dev), n) for tag, i, v, n in cases]
     for tag, idx, vals, n_rows in all_cases:
-        results[f"{tag}/tiles"] = tiles = tile_load(idx, n_rows)
+        results[f"{tag}/tiles"] = load = tile_load(idx, n_rows)
         log(f"{tag}: {idx.shape[0]} updates into {n_rows} rows; tiles of "
-            f"{DEFAULT_TILE_ROWS} rows: {tiles['hit']} of {tiles['tiles']} "
-            f"hold updates, the busiest {tiles['busiest']}")
+            f"{TILE_LOAD_ROWS} rows: {load['hit']} of {load['tiles']} "
+            f"hold updates, the busiest {load['busiest']}; buckets of "
+            f"{load['bucket_rows']} rows: {load['buckets']}, the busiest "
+            f"{load['busiest_bucket']}")
+        occ = cluster_occupancy(vals, idx) if on_gpu else None
+        if occ is not None and occ != results.get("max_active_clusters"):
+            results["max_active_clusters"] = occ
+            log("cudaOccupancyMaxActiveClusters (idx "
+                f"{str(idx.dtype).replace('torch.', '')}): "
+                + ", ".join(f"{k} {v}" for k, v in occ.items()))
         ref = scatter_add_rows_plain(idx, vals, n_rows)
         mag = scatter_add_rows_plain(idx, vals.float().abs(), n_rows)
-        idx_s, vals_s, _, route_ok = _check_route(idx, vals, n_rows)
-        for name, fn in _variants(idx, vals, n_rows, idx_s, vals_s):
+        idx_s, vals_s, route_ok, routes = _routes(idx, vals, n_rows)
+        runs = (lambda name: True) if occ is None else (
+            lambda name: occ[name] >= 1)
+        for name in ("blocked", "bucket"):
+            default = f"{name}T{DEFAULT_TILE_ROWS}C{DEFAULT_CLUSTER}"
+            if not runs(default):
+                log(f"{tag + '/' + default:40s} FAILED: the card holds no "
+                    f"cluster of the default configuration")
+                results[f"{tag}/{default}"] = "failed: the card holds no " \
+                                              "cluster of it"
+                results["failed"].append(f"{tag}/{default}")
+        for name, fn in _variants(idx, vals, n_rows, idx_s, vals_s, runs):
             full = f"{tag}/{name}"
             try:
                 got = fn()
@@ -246,20 +340,24 @@ def run(device="cuda", bf16: bool = False, small: bool = False,
                              "err_ratio": ratio}
             log(f"{full:40s} {ms:9.4f} ms/call  device {_fmt(g_ms)}  bound "
                 f"{b_ms:.4f} ms ({by})  err/tol {ratio:.3g}")
-        full = f"{tag}/route"
         if not route_ok:
-            log(f"{full:40s} WRONG (unsorted keys or offsets)")
-            results[full] = "wrong: unsorted keys or offsets"
-            results["failed"].append(full)
+            for name in routes:
+                log(f"{tag + '/' + name:40s} WRONG (unsorted keys, offsets "
+                    f"or permutation)")
+                results[f"{tag}/{name}"] = "wrong: unsorted keys, offsets " \
+                                           "or permutation"
+                results["failed"].append(f"{tag}/{name}")
             continue
-        route = lambda: bucket_route(idx, vals, n_rows, DEFAULT_TILE_ROWS)
-        ms = median_ms(route, dev, reps, walls)
-        g_ms = graph_ms(route, reps, walls) if on_gpu else None
-        b_ms, by = route_bound(idx, vals, n_rows)
-        results[full] = {"ms": ms, "graph_ms": g_ms, "bound_ms": b_ms,
-                         "bound_by": by}
-        log(f"{full:40s} {ms:9.4f} ms/call  device {_fmt(g_ms)}  bound "
-            f"{b_ms:.4f} ms ({by})  (sort + index_select + searchsorted)")
+        for name, (route, rows, permute) in routes.items():
+            ms = median_ms(route, dev, reps, walls)
+            g_ms = graph_ms(route, reps, walls) if on_gpu else None
+            b_ms, by = route_bound(idx, vals, n_rows, rows, permute)
+            results[f"{tag}/{name}"] = {"ms": ms, "graph_ms": g_ms,
+                                        "bound_ms": b_ms, "bound_by": by}
+            log(f"{tag + '/' + name:40s} {ms:9.4f} ms/call  device "
+                f"{_fmt(g_ms)}  bound {b_ms:.4f} ms ({by})  (sort"
+                f"{' + index_select' if permute else ''} + searchsorted, "
+                f"buckets of {rows} rows)")
     return results
 
 

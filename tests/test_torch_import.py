@@ -27,8 +27,10 @@ def test_every_module_imports_without_jax():
               "tracking.frontend", "tracking.tracker", "ops.ba_sparse",
               "tracking.dist_cache", "tracking.backend",
               "tracking.trajectory_filler", "eval.ate",
-              "kernels.scatter_rows_blocked", "kernels.scatter_rows_bucketed",
-              "tools.measure", "tools.prof_corr", "tools.prof_scatter"):
+              "kernels.scatter_cluster", "kernels.scatter_rows_blocked",
+              "kernels.scatter_rows_bucketed",
+              "tools.measure", "tools.prof_corr", "tools.prof_scatter",
+              "tools.scatter_ablation"):
         assert f"mneslam_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"

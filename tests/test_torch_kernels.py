@@ -14,9 +14,10 @@ order, so they differ by at most 2 * 128 * 2^-24 of the dot of the
 magnitudes (plus 1e-7). Kernel 2b (tensor cores, 3xTF32) against its plain
 version and against kernel 2: MMA_RTOL below, derived there. The blocked
 and bucketed scatters add into shared memory with atomics, so they take
-the scatter's tolerance; the corr variants with an unrolled pixel loop
-keep every output's FMA sequence and must equal the row design they
-unroll (`corr_window_multilevel_rows`) bit for bit. The box design of the
+the scatter's tolerance (both designs: the thread-block cluster design,
+and the tile design of the first port, `*_tiles`); the corr variants
+with an unrolled pixel loop keep every output's FMA sequence and must
+equal the row design they unroll (`corr_window_multilevel_rows`) bit for bit. The box design of the
 correlation kernels runs on smooth lookup centres (`smooth_coords`), its
 row path on scattered ones; both hold the same tolerances.
 """
@@ -34,13 +35,18 @@ from mneslam_tpu_torch.kernels.corr_window import (
     corr_window_plain)
 from mneslam_tpu_torch.kernels.scatter_add_rows import (
     scatter_add_rows, scatter_add_rows_per_warp, scatter_add_rows_plain)
+from mneslam_tpu_torch.kernels import scatter_rows_blocked as srb
+from mneslam_tpu_torch.kernels import scatter_rows_bucketed as srk
+from mneslam_tpu_torch.kernels.scatter_cluster import CLUSTERS
 from mneslam_tpu_torch.kernels.scatter_rows_blocked import (
-    scatter_add_rows_blocked, scatter_add_rows_blocked_plain)
+    scatter_add_rows_blocked, scatter_add_rows_blocked_plain,
+    scatter_add_rows_blocked_tiles)
 from mneslam_tpu_torch.kernels.scatter_rows_bucketed import (
-    bucket_route, scatter_add_rows_bucketed,
-    scatter_add_rows_bucketed_plain)
+    bucket_route, cluster_route, scatter_add_rows_bucketed,
+    scatter_add_rows_bucketed_plain, scatter_add_rows_bucketed_tiles)
 from mneslam_tpu_torch.ops import correlation, interp
 from mneslam_tpu_torch.tools.prof_corr import smooth_coords
+from mneslam_tpu_torch.tools.prof_scatter import CONFIGS
 
 pytestmark = pytest.mark.cuda
 
@@ -137,17 +143,31 @@ def test_scatter_per_warp_variants_match_plain(cuda, per_warp, n_rows, nu,
         scatter_add_rows_per_warp(idx, vals, n_rows, 12)
 
 
-def _assert_scatter_close(got, idx, vals, n_rows):
+def _scatter_tol(idx, vals, n_rows):
+    """-> (plain fp32 sums, per-output tolerance): 5e-5 x the sum of the
+    magnitudes added + 1e-6, plus one bf16 ulp for a bf16 result."""
     ref = scatter_add_rows_plain(idx, vals, n_rows)
     mag = scatter_add_rows_plain(idx, vals.float().abs(), n_rows).float()
-    torch.cuda.synchronize()
-    assert got.dtype == vals.dtype and got.shape == (n_rows, vals.shape[1])
     tol = 5e-5 * mag + 1e-6
     if vals.dtype == torch.bfloat16:
         tol = tol + 2.0 ** -7 * ref.float().abs()
+    return ref, tol
+
+
+def _assert_scatter_close(got, idx, vals, n_rows):
+    ref, tol = _scatter_tol(idx, vals, n_rows)
+    torch.cuda.synchronize()
+    assert got.dtype == vals.dtype and got.shape == (n_rows, vals.shape[1])
     assert bool(((got.float() - ref.float()).abs() <= tol).all())
 
 
+# (blocked, bucketed) wrappers of each design
+DESIGNS = {"cluster": (scatter_add_rows_blocked, scatter_add_rows_bucketed),
+           "tiles": (scatter_add_rows_blocked_tiles,
+                     scatter_add_rows_bucketed_tiles)}
+
+
+@pytest.mark.parametrize("design", list(DESIGNS))
 @pytest.mark.parametrize("n_rows,nu,width,dtype,idx_dtype,tile", [
     (201, 64, 128, torch.float32, torch.int64, 64),
     (1001, 500, 64, torch.float32, torch.int32, 128),   # 1001 % 128 != 0
@@ -159,25 +179,26 @@ def _assert_scatter_close(got, idx, vals, n_rows):
     (160_801, 11_567, 128, torch.float32, torch.int32, 384),
     (160_801, 92_536, 128, torch.bfloat16, torch.int64, 128),
 ])
-def test_blocked_and_bucketed_scatters_match_plain(cuda, n_rows, nu, width,
-                                                   dtype, idx_dtype, tile):
+def test_blocked_and_bucketed_scatters_match_plain(cuda, design, n_rows, nu,
+                                                   width, dtype, idx_dtype,
+                                                   tile):
     """Out-of-range indices (dropped), duplicates, a run of one row, tile
-    heights that do not divide n_rows, nu = 0, bf16 values."""
+    heights that do not divide n_rows, nu = 0, bf16 values; the cluster
+    design at its default cluster size."""
+    blocked, bucketed = DESIGNS[design]
     idx, vals = _inputs(n_rows, nu, width, dtype, idx_dtype, cuda)
-    b0, k0 = scatter_add_rows_blocked.launches, \
-        scatter_add_rows_bucketed.launches
-    got = scatter_add_rows_blocked(idx, vals, n_rows, tile)
+    b0, k0 = blocked.launches, bucketed.launches
+    got = blocked(idx, vals, n_rows, tile)
     _assert_scatter_close(got, idx, vals, n_rows)
     assert not got[n_rows - 3:].float().any()
-    got = scatter_add_rows_bucketed(idx, vals, n_rows, tile)
+    got = bucketed(idx, vals, n_rows, tile)
     _assert_scatter_close(got, idx, vals, n_rows)
     idx_s, vals_s, _ = bucket_route(idx, vals, n_rows, tile)
-    got = scatter_add_rows_bucketed(idx_s, vals_s, n_rows, tile,
-                                    presorted=True)
+    got = bucketed(idx_s, vals_s, n_rows, tile, presorted=True)
     _assert_scatter_close(got, idx, vals, n_rows)
-    assert scatter_add_rows_blocked.launches == b0 + 1
-    assert scatter_add_rows_bucketed.launches == k0 + 2
-    # the plain versions follow the same blocks and agree as well
+    assert blocked.launches == b0 + 1
+    assert bucketed.launches == k0 + 2
+    # the plain versions follow the same buckets and agree as well
     _assert_scatter_close(scatter_add_rows_blocked_plain(idx, vals, n_rows,
                                                          tile),
                           idx, vals, n_rows)
@@ -186,18 +207,27 @@ def test_blocked_and_bucketed_scatters_match_plain(cuda, n_rows, nu, width,
                           idx, vals, n_rows)
 
 
+@pytest.mark.parametrize("design", list(DESIGNS))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_blocked_and_bucketed_scatters_all_updates_on_one_row(cuda, dtype):
+def test_blocked_and_bucketed_scatters_all_updates_on_one_row(cuda, design,
+                                                              dtype):
     idx = torch.full((5000,), 123, dtype=torch.int64, device=cuda)
     vals = torch.randn((5000, 128), device=cuda).to(dtype)
-    for fn in (scatter_add_rows_blocked, scatter_add_rows_bucketed):
+    for fn in DESIGNS[design]:
         _assert_scatter_close(fn(idx, vals, 1000, 128), idx, vals, 1000)
+    if design == "cluster":       # every cluster size, the row on rank 0
+        for cl in CLUSTERS:
+            for fn in DESIGNS[design]:
+                _assert_scatter_close(fn(idx, vals, 1000, 16, cluster=cl),
+                                      idx, vals, 1000)
 
 
-def test_blocked_and_bucketed_scatters_reject_bad_inputs(cuda):
+@pytest.mark.parametrize("design", list(DESIGNS))
+def test_blocked_and_bucketed_scatters_reject_bad_inputs(cuda, design):
     idx = torch.zeros(4, dtype=torch.int64, device=cuda)
     vals = torch.zeros(4, 128, device=cuda)
-    for fn in (scatter_add_rows_blocked, scatter_add_rows_bucketed):
+    blocked, bucketed = DESIGNS[design]
+    for fn in (blocked, bucketed):
         with pytest.raises(ValueError, match="shared memory"):
             fn(idx, vals, 1000, 455)            # 455 x 128 x 4 B > 227 KB
         with pytest.raises(ValueError, match="shared memory"):
@@ -210,7 +240,124 @@ def test_blocked_and_bucketed_scatters_reject_bad_inputs(cuda):
             fn(idx.cpu(), vals, 3)
         with pytest.raises(ValueError):
             fn(idx[:3], vals, 3)
-    assert scatter_add_rows_blocked(idx, vals, 1000, 454).shape == (1000, 128)
+    if design == "cluster":
+        for fn in (blocked, bucketed):
+            with pytest.raises(ValueError, match="cluster"):
+                fn(idx, vals, 1000, 64, cluster=3)
+    assert blocked(idx, vals, 1000, 454).shape == (1000, 128)
+
+
+SOURCES = {"scatter_rows_blocked": srb, "scatter_rows_bucketed": srk}
+
+
+def _cluster_runs(source, t, cl, vals, idx):
+    return SOURCES[source].max_active_clusters(
+        vals.shape[1], t, cl, vals.dtype, idx.dtype) >= 1
+
+
+@pytest.mark.parametrize("t,cl", CONFIGS)
+@pytest.mark.parametrize("n_rows,nu,dtype,idx_dtype", [
+    (160_801, 11_567, torch.float32, torch.int32),
+    (100_400, 92_364, torch.bfloat16, torch.int64),
+    (7_001, 3_000, torch.float32, torch.int64),   # not a multiple of cl * t
+])
+def test_cluster_configs_match_plain_and_tile_design(cuda, t, cl, n_rows, nu,
+                                                     dtype, idx_dtype):
+    """Each (T, CL) that the probe sweeps, routed and presorted, against
+    the plain version and against the tile design on the same inputs (each
+    within the tolerance of the plain sums, so within twice it of each
+    other). A configuration the card cannot hold must raise."""
+    idx, vals = _inputs(n_rows, nu, 128, dtype, idx_dtype, cuda)
+    idx_s, vals_s, _ = bucket_route(idx, vals, n_rows, t)
+    ref, tol = _scatter_tol(idx, vals, n_rows)
+    tiles = scatter_add_rows_blocked_tiles(idx, vals, n_rows, 64)
+    runs = {
+        "scatter_rows_blocked": [
+            lambda: scatter_add_rows_blocked(idx, vals, n_rows, t, cl)],
+        "scatter_rows_bucketed": [
+            lambda: scatter_add_rows_bucketed(idx, vals, n_rows, t,
+                                              cluster=cl),
+            lambda: scatter_add_rows_bucketed(idx_s, vals_s, n_rows, t,
+                                              presorted=True, cluster=cl)]}
+    for source, fns in runs.items():
+        for fn in fns:
+            if not _cluster_runs(source, t, cl, vals, idx):
+                with pytest.raises(RuntimeError, match="cudaError"):
+                    fn()
+                continue
+            got = fn()
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and got.shape == (n_rows, 128)
+            assert bool(((got.float() - ref.float()).abs() <= tol).all())
+            assert bool(((got.float() - tiles.float()).abs()
+                         <= 2 * tol).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cluster_design_hot_bucket(cuda, dtype):
+    """90% of the updates in one 64-row tile (the mapping path's skew, and
+    worse), the rest spread: every configuration the card holds, routed
+    and presorted."""
+    n_rows, nu = 160_801, 92_536
+    g = torch.Generator(device=cuda).manual_seed(3)
+    idx = torch.randint(0, n_rows, (nu,), generator=g, device=cuda)
+    hot = torch.rand(nu, generator=g, device=cuda) < 0.9
+    idx[hot] = 5000 + torch.randint(0, 64, (int(hot.sum()),), generator=g,
+                                    device=cuda)
+    vals = torch.randn((nu, 128), generator=g, device=cuda).to(dtype)
+    for t, cl in CONFIGS:
+        if _cluster_runs("scatter_rows_blocked", t, cl, vals, idx):
+            _assert_scatter_close(
+                scatter_add_rows_blocked(idx, vals, n_rows, t, cl), idx,
+                vals, n_rows)
+        if _cluster_runs("scatter_rows_bucketed", t, cl, vals, idx):
+            _assert_scatter_close(
+                scatter_add_rows_bucketed(idx, vals, n_rows, t, cluster=cl),
+                idx, vals, n_rows)
+            idx_s, perm, _ = cluster_route(idx, n_rows, t * cl)
+            _assert_scatter_close(
+                scatter_add_rows_bucketed(idx_s, vals[perm], n_rows, t,
+                                          presorted=True, cluster=cl),
+                idx, vals, n_rows)
+
+
+def test_cluster_design_launch_counters(cuda):
+    """Each entry counts its own launches, and nothing else does."""
+    idx, vals = _inputs(5000, 700, 128, torch.float32, torch.int64, cuda)
+    fns = [scatter_add_rows_blocked, scatter_add_rows_bucketed,
+           scatter_add_rows_blocked_tiles, scatter_add_rows_bucketed_tiles]
+    for k, fn in enumerate(fns):
+        before = [f.launches for f in fns]
+        fn(idx, vals, 5000)
+        fn(idx, vals, 5000)
+        after = [f.launches for f in fns]
+        assert [a - b for a, b in zip(after, before)] == [
+            2 if j == k else 0 for j in range(len(fns))]
+        # a plain version launches nothing
+        scatter_add_rows_blocked_plain(idx, vals, 5000)
+        scatter_add_rows_bucketed_plain(idx, vals, 5000)
+        assert [f.launches for f in fns] == after
+
+
+def test_cluster_the_card_cannot_schedule_raises(cuda):
+    """32 blocks per cluster (above the non-portable 16): the C entries
+    take it, the launch is refused and the wrapper raises; the card works
+    on afterwards."""
+    idx, vals = _inputs(5000, 700, 128, torch.float32, torch.int64, cuda)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        srb._launch("scatter_rows_blocked_cluster", idx, vals, 5000, 64, 32)
+    idx_s, perm, off = cluster_route(idx, 5000, 64 * 32)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        srk._launch_cluster(idx_s, perm, off, vals, 5000, 64, 32)
+    for module in (srb, srk):
+        try:
+            assert module.max_active_clusters(128, 64, 32) == 0
+        except RuntimeError:
+            pass
+    _assert_scatter_close(scatter_add_rows_blocked(idx, vals, 5000), idx,
+                          vals, 5000)
+    _assert_scatter_close(scatter_add_rows_bucketed(idx, vals, 5000), idx,
+                          vals, 5000)
 
 
 def test_sampler_backward_on_gpu_matches_cpu(cuda):

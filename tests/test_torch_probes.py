@@ -26,11 +26,13 @@ from mneslam_tpu.ops import pallas_kernels as jpk
 from mneslam_tpu_torch.kernels import corr_window as kcw
 from mneslam_tpu_torch.kernels.scatter_add_rows import (
     scatter_add_rows, scatter_add_rows_per_warp, scatter_add_rows_plain)
+from mneslam_tpu_torch.kernels.scatter_cluster import CLUSTERS
 from mneslam_tpu_torch.kernels.scatter_rows_blocked import (
     scatter_add_rows_blocked, scatter_add_rows_blocked_plain)
 from mneslam_tpu_torch.kernels.scatter_rows_bucketed import (
-    bucket_route, scatter_add_rows_bucketed, scatter_add_rows_bucketed_plain)
-from mneslam_tpu_torch.tools import prof_corr, prof_scatter
+    bucket_route, cluster_route, scatter_add_rows_bucketed,
+    scatter_add_rows_bucketed_plain, scatter_add_rows_bucketed_tiles)
+from mneslam_tpu_torch.tools import prof_corr, prof_scatter, scatter_ablation
 from test_torch_correlation import HT, WD, _kernel_inputs, _t
 
 torch.set_num_threads(1)
@@ -135,6 +137,166 @@ def test_bucketed_matches_tpu_probe(interpret, n_buckets, presorted, n_rows,
     _close(scatter_add_rows_bucketed_plain(torch.tensor(idx).long(),
                                            torch.tensor(vals), n_rows, t,
                                            presorted=presorted), ref)
+
+
+def _clusters(bucket_rows):
+    """The cluster sizes that split a bucket into whole tiles."""
+    return [cl for cl in CLUSTERS if bucket_rows % cl == 0]
+
+
+def _bf16_pair(fn, idx, vals):
+    """The TPU probe's fp32 kernel on bf16-rounded values, its result
+    rounded to bf16 (the probe's `pallasF32acc` rule); and those values as
+    a bf16 tensor."""
+    vb = jnp.asarray(vals).astype(jnp.bfloat16).astype(jnp.float32)
+    ref = fn(jnp.asarray(idx), vb).astype(jnp.bfloat16).astype(jnp.float32)
+    return np.asarray(ref), torch.tensor(np.asarray(vb)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("n_blocks", [1, 3])
+@pytest.mark.parametrize("n_rows,nu,width", [(100, 40, 16), (257, 97, 128)])
+def test_blocked_cluster_design_matches_tpu_probe(interpret, n_blocks, n_rows,
+                                                  nu, width):
+    """`make_pallas_scatter` against the cluster design's plain version and
+    CPU path over buckets of cluster * tile_rows rows = the probe's block
+    of n_rows / n_blocks rows, at every cluster size that divides it: fp32,
+    and bf16 as the probe's `pallasF32acc`; duplicates, negative and
+    out-of-range indices (dropped on both sides)."""
+    mod = _tool("prof_pallas_scatter")
+    idx, vals = _data(n_rows, nu, width, seed=10 + n_blocks)
+    fn = mod.make_pallas_scatter(n_rows, nu, width, jnp.float32,
+                                 n_blocks=n_blocks, unroll=8)
+    ref = np.asarray(fn(jnp.asarray(idx), jnp.asarray(vals)))
+    ref16, vals16 = _bf16_pair(fn, idx, vals)
+    bucket = _blk(n_rows, n_blocks)
+    ti, tv = torch.tensor(idx), torch.tensor(vals)
+    for cl in _clusters(bucket):
+        t = bucket // cl
+        for got in (scatter_add_rows_blocked(ti, tv, n_rows, t, cl),
+                    scatter_add_rows_blocked_plain(ti.long(), tv, n_rows, t,
+                                                   cl)):
+            assert got.shape == (n_rows, width) and got.dtype == torch.float32
+            _close(got, ref)
+        got16 = scatter_add_rows_blocked(ti, vals16, n_rows, t, cl)
+        assert got16.dtype == torch.bfloat16
+        _close(got16.float(), ref16, bf16=True)
+
+
+@pytest.mark.parametrize("n_buckets", [2, 4])
+@pytest.mark.parametrize("presorted", [False, True])
+@pytest.mark.parametrize("n_rows,nu,width", [(120, 50, 16), (301, 88, 128)])
+def test_bucketed_cluster_design_matches_tpu_probe(interpret, n_buckets,
+                                                   presorted, n_rows, nu,
+                                                   width):
+    """`make_bucketed` (routed, and `presorted` on sorted inputs) against
+    the cluster design's plain version and CPU path over buckets of
+    cluster * tile_rows rows = the probe's buckets, at every cluster size
+    that divides them: fp32 and bf16 (values rounded to bf16, fp32 sums,
+    one rounding at the end), negative and out-of-range indices dropped."""
+    mod = _tool("prof_scatter_bucketed")
+    idx, vals = _data(n_rows, nu, width, seed=20 + n_buckets)
+    if presorted:
+        order = np.argsort(idx, kind="stable")
+        idx, vals = idx[order], vals[order]
+    fn = mod.make_bucketed(n_rows, nu, width, jnp.float32, n_buckets,
+                           presorted=presorted)
+    ref = np.asarray(fn(jnp.asarray(idx), jnp.asarray(vals)))
+    ref16, vals16 = _bf16_pair(fn, idx, vals)
+    bucket = _blk(n_rows, n_buckets)
+    ti, tv = torch.tensor(idx), torch.tensor(vals)
+    for cl in _clusters(bucket):
+        t = bucket // cl
+        for got in (scatter_add_rows_bucketed(ti, tv, n_rows, t, presorted,
+                                              cl),
+                    scatter_add_rows_bucketed_plain(ti.long(), tv, n_rows, t,
+                                                    presorted, cl)):
+            assert got.shape == (n_rows, width) and got.dtype == torch.float32
+            _close(got, ref)
+        got16 = scatter_add_rows_bucketed(ti, vals16, n_rows, t, presorted,
+                                          cl)
+        assert got16.dtype == torch.bfloat16
+        _close(got16.float(), ref16, bf16=True)
+
+
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+def test_cluster_route_gathers_as_the_permuted_route(idx_dtype):
+    """The cluster route permutes only the indices: gathering vals by its
+    permutation gives the tile route's permuted vals up to the order of
+    equal keys (the sort is stable: equal keys keep their input order),
+    the same keys and offsets, and the same scatter. presorted=True skips
+    the sort."""
+    n_rows, nu, width = 300, 200, 16
+    idx, vals = _data(n_rows, nu, width, seed=5)
+    ti, tv = torch.tensor(idx).to(idx_dtype), torch.tensor(vals)
+    idx_s, perm, off = cluster_route(ti, n_rows, 64)
+    t_s, vals_s, t_off = bucket_route(ti, tv, n_rows, 64)
+    assert torch.equal(idx_s, t_s) and torch.equal(off, t_off)
+    assert perm.dtype == torch.int64 and torch.equal(ti[perm], idx_s)
+    same = idx_s[1:] == idx_s[:-1]
+    assert bool((perm[1:][same] > perm[:-1][same]).all())      # stable
+    # each key's rows are the same multiset in both routes
+    gathered = tv[perm]
+    for key in idx_s.unique():
+        a = gathered[idx_s == key]
+        b = vals_s[idx_s == key]
+        torch.testing.assert_close(a.sum(0), b.sum(0))
+        assert a.shape == b.shape
+    _close(scatter_add_rows_bucketed_plain(ti, tv, n_rows, 32, cluster=2),
+           scatter_add_rows_bucketed_tiles(ti, tv, n_rows, 64))
+
+    def no_sort(*args, **kwargs):
+        raise AssertionError("presorted input was sorted again")
+
+    s_idx, s_vals = ti[perm], tv[perm]
+    ref = scatter_add_rows_plain(ti, tv, n_rows)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch, "sort", no_sort)
+        p_idx, p_perm, p_off = cluster_route(s_idx, n_rows, 64,
+                                             presorted=True)
+        assert p_perm is None and torch.equal(p_idx, s_idx)
+        assert torch.equal(p_off, off)
+        _close(scatter_add_rows_bucketed(s_idx, s_vals, n_rows, 16,
+                                         presorted=True, cluster=4), ref)
+
+
+@pytest.mark.parametrize("fn", [scatter_add_rows_blocked,
+                                scatter_add_rows_bucketed,
+                                scatter_add_rows_blocked_plain,
+                                scatter_add_rows_bucketed_plain])
+def test_cluster_sizes_the_kernels_do_not_build_raise(fn):
+    """A cluster size outside CLUSTERS, or a tile that does not fit shared
+    memory, raises on the CPU path too (the CUDA path raises the same
+    before any launch)."""
+    idx = torch.tensor([0, 3, 3], dtype=torch.int64)
+    vals = torch.ones(3, 128)
+    for cl in (0, 1, 3, 32):
+        with pytest.raises(ValueError, match="cluster"):
+            fn(idx, vals, 10, 4, cluster=cl)
+    for t in (0, 455):
+        with pytest.raises(ValueError, match="shared memory"):
+            fn(idx, vals, 10, t, cluster=2)
+    assert fn(idx, vals, 10, 454, cluster=16)[3].sum() == 2 * 128
+
+
+def test_probe_tile_load_and_route_bound():
+    """`tile_load` reports the busiest 64-row tile and the busiest of the
+    bucketed kernel's default buckets; `route_bound` counts the
+    permutation and, only for the tile design's route, the permuted copy
+    of vals."""
+    bucket = prof_scatter.BUCKET_ROWS
+    n_rows = 3 * bucket
+    idx = torch.tensor([0, 1, 63, 64, bucket, bucket + 1, bucket + 2,
+                        2 * bucket, -1, n_rows])
+    load = prof_scatter.tile_load(idx, n_rows)
+    assert load["tiles"] == n_rows // 64 and load["busiest"] == 3
+    assert load["buckets"] == 3 and load["bucket_rows"] == bucket
+    assert load["busiest_bucket"] == 4
+    vals = torch.zeros(10, 128)
+    plain, _ = prof_scatter.route_bound(idx, vals, n_rows, bucket)
+    permuted, _ = prof_scatter.route_bound(idx, vals, n_rows, bucket, True)
+    nbytes = 2 * 10 * 8 + 8 * 10 + 8 * 4
+    assert plain == pytest.approx(1e3 * nbytes / 3.35e12)
+    assert permuted - plain == pytest.approx(1e3 * 2 * 10 * 128 * 4 / 3.35e12)
 
 
 @pytest.mark.parametrize("unroll", [8, 16, 32])
@@ -250,18 +412,24 @@ def test_corr_probe_runs_on_cpu(capsys):
 
 
 def test_probe_failure_exits_nonzero(capsys, monkeypatch):
-    """A wrong variant is printed and makes the probe exit non-zero."""
-    monkeypatch.setattr(prof_scatter, "scatter_add_rows_blocked",
-                        lambda idx, vals, n, t: 2 * scatter_add_rows_plain(
-                            idx, vals, n))
+    """A wrong variant is printed and makes the probe exit non-zero (both
+    blocked designs made wrong: the cluster design and the tile design)."""
+    def wrong(idx, vals, n, *sizes):
+        return 2 * scatter_add_rows_plain(idx, vals, n)
+
+    monkeypatch.setattr(prof_scatter, "scatter_add_rows_blocked", wrong)
+    monkeypatch.setattr(prof_scatter, "scatter_add_rows_blocked_tiles", wrong)
     rc = prof_scatter.main(["--device", "cpu", "--small"])
     out = capsys.readouterr().out
     res = _last_json(out)
     assert rc == 1 and "WRONG" in out
     assert "fine@11.5k/blockedT64" in res["failed"]
+    t, cl = prof_scatter.CONFIGS[0]
+    assert f"fine@11.5k/blockedT{t}C{cl}" in res["failed"]
 
 
-@pytest.mark.parametrize("probe", [prof_corr, prof_scatter])
+@pytest.mark.parametrize("probe", [prof_corr, prof_scatter,
+                                   scatter_ablation])
 def test_probes_raise_without_a_gpu(probe):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the probe would run on it")
