@@ -5,12 +5,25 @@
 Phases, each of which must pass (any failure exits non-zero):
   1. the card's name and power limit;
   2. build every CUDA kernel of the port from this checkout's sources (one
-     nvcc per source, started together);
+     nvcc per source, started together) and the host marching-tetrahedra
+     polygoniser (g++, in parallel with them);
   3. small parity: a few mapper steps of a tiny config on the GPU agree with
      the same steps on the CPU (the plain path, which the CPU tests hold
-     against the JAX package);
+     against the JAX package); 3b. mesh parity: the same steps on one
+     frame of the tiny box room on both devices, then `extract_mesh` with
+     the keyframe's observed space on both: the SDF volumes within rtol
+     1e-4 / atol 1e-5, the vertex counts within 4, eval_mesh of the GPU
+     mesh against the CPU mesh within 0.1 cm (accuracy and completion),
+     and the native and numpy polygonisers give the same mesh from the GPU
+     volume;
   4. tracking parity: two factor-graph updates of a tiny shared keyframe
-     buffer with the same random DROID weights, GPU vs CPU, in fp32;
+     buffer with the same random DROID weights, GPU vs CPU, in fp32. The
+     GPU side runs twice by default (printed: index_add_'s atomics make
+     its sums run-dependent) and twice with
+     `torch.use_deterministic_algorithms` (CUBLAS_WORKSPACE_CONFIG is set
+     before CUDA starts): those two must be bit-identical and hold the
+     tolerances against the CPU (`mneslam_tpu_torch/tools/
+     prof_determinism.py` takes the gap apart);
   5. oracle tracking: a tiny SLAM run (`MNESLAM.run_slam`) on the GPU whose
      tracker update gets ground-truth reprojection targets; its key poses
      must lie within 5 cm of the dataset's (the check that BA and geometry
@@ -24,7 +37,20 @@ Phases, each of which must pass (any failure exits non-zero):
      (configs/Replica/room0.yaml) on the synthetic box room, with the
      kernels' launch counts set to 0 just before and read just after, then
      steady-state step times and a torch.profiler table of 5 iterations
-     (chiprun_out/chip_smoke/mapping_profile.txt);
+     (chiprun_out/chip_smoke/mapping_profile.txt). Its terminate must write
+     mesh/final_mesh.ply and final_mesh_culled.ply; 7b. the mesh step by
+     step on that map (the SDF grid on the card timed with CUDA events,
+     the copy to the host, the polygoniser, the weld, the observed-space
+     filter, vertex colours, the cull; vertex and face counts; eval_mesh of
+     the culled mesh against the box room's walls; the raw triangle
+     vertices inside and outside the observed space, and the weld's time
+     on the triangles wholly inside), and again at
+     mesh.voxel_eval (a snapshot's cost); 7c. one keyframe rendered whole
+     (680 x 1200) with its PSNR and depth L1, its panel written where
+     matplotlib is installed; 7d. resume: a tiny mapping run interrupted
+     after two keyframes, its full state loaded by a fresh agent that maps
+     the third, against the uninterrupted run (phase 3's parameter
+     tolerance; kernel 1 launches after the resume);
   8. the SLAM main path: `MNESLAM.run_slam` at the room0 widths (tracking
      at 320 x 640, buffer 250, frontend window 25) with random DROID
      weights in bf16 for 80 frames: loop BA dense and sparse, global BA
@@ -32,7 +58,9 @@ Phases, each of which must pass (any failure exits non-zero):
      the filler and the APE; the counts set to 0 just before and read just
      after; times per tracked frame, per loop BA, per global BA; then
      torch.profiler tables of 3 frontend updates and of one sparse global-
-     BA step (chiprun_out/chip_smoke/{tracking,global_ba}_profile.txt);
+     BA step (chiprun_out/chip_smoke/{tracking,global_ba}_profile.txt); its
+     terminate must write both meshes, and the mesh step's seconds (79
+     keyframes' depths, the grid, the cull) are printed;
   9. the same path with MNESLAM_CORR_IMPL=pallas_mxu for 32 frames: every
      correlation lookup is a launch of kernel 2b and none of kernel 2;
  10. each kernel against its plain PyTorch version at the main path's
@@ -67,6 +95,10 @@ import os
 import subprocess
 import sys
 import time
+
+# cuBLAS picks a deterministic reduction only with a fixed workspace, read
+# when CUDA initialises: phase 4 runs with deterministic algorithms
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # small outputs (the profile table) go to chiprun_out/, kept under 64 MiB;
@@ -115,6 +147,24 @@ ATE_TOL_M = 0.05
 # runs after every keyframe past 25, sparse past 64
 SLAM_FRAMES = 80
 MXU_FRAMES = 32             # the pallas_mxu run: loop BA and one global BA
+# the room0 paths' synthetic box room [-BOX_HALF, BOX_HALF]^3
+BOX_HALF = 0.95
+# mesh parity: the tiny map's grid covers a 0.5 x 0.5 m patch of the wall
+# (z = -2) that frame 0 of the tiny box room faces, at 2.5 cm
+MESH_PARITY_BOUND = [[0.25, 0.75], [-0.25, 0.25], [-2.2, -1.7]]
+MESH_PARITY_VOXEL = 0.025
+MESH_PARITY_STEPS = 20
+# eval_mesh of the GPU mesh against the CPU mesh, accuracy and completion
+MESH_PARITY_CM = 0.1
+# the GPU volume against the CPU volume, per voxel: the CPU parity tests'
+# fp32 bounds (the maps differ by kernel 1's atomic sum order)
+MESH_PARITY_SDF_RTOL = 1e-4
+MESH_PARITY_SDF_ATOL = 1e-5
+# vertex counts, GPU against CPU: a voxel whose SDF lies within the fp32
+# difference of the level set may flip sides and move a vertex or two
+MESH_PARITY_VERTS = 4
+# small parity's and the resume check's parameter tolerance
+PARAM_TOL = 1e-4
 FLIP = ((1.0, 0.0, 0.0, 0.0), (0.0, -1.0, 0.0, 0.0), (0.0, 0.0, -1.0, 0.0),
         (0.0, 0.0, 0.0, 1.0))
 
@@ -248,6 +298,306 @@ def small_parity():
     return losses, rel, pdiff
 
 
+def box_room_mesh(half: float):
+    """The synthetic box room's six walls as 12 triangles (the ground
+    truth of the room0 paths' meshes)."""
+    import numpy as np
+
+    v = np.array([[x, y, z] for x in (-half, half) for y in (-half, half)
+                  for z in (-half, half)], np.float32)
+    quads = [(0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1), (2, 3, 7, 6),
+             (0, 2, 6, 4), (1, 5, 7, 3)]
+    f = np.array([t for a, b, c, d in quads for t in ((a, b, c), (a, c, d))],
+                 np.int64)
+    return v, f
+
+
+def n_eval_samples(verts, faces, spacing_m=1e-3):
+    """Surface samples for eval_mesh so that two samplings of one mesh lie
+    about `spacing_m` apart (their accuracy then reads about half that):
+    area / spacing^2, within [2e5, 2e6]."""
+    import numpy as np
+
+    v0, v1, v2 = (verts[faces[:, i]] for i in range(3))
+    area = float(0.5 * np.linalg.norm(np.cross(v1 - v0, v2 - v0),
+                                      axis=1).sum())
+    return int(min(max(area / spacing_m ** 2, 2e5), 2e6)), area
+
+
+def mesh_parity():
+    """The same MESH_PARITY_STEPS mapper steps of the tiny config on frame
+    0 of the tiny box room, on the GPU and on the CPU from the same
+    weights and inputs, then `extract_mesh` with the keyframe's observed
+    space on both -> dict of the comparisons."""
+    import numpy as np
+    import torch
+
+    from mneslam_tpu_torch.data.rays import rays_from_pose
+    from mneslam_tpu_torch.data.synthetic import SyntheticBoxDataset
+    from mneslam_tpu_torch.eval import recon
+    from mneslam_tpu_torch.mapping import mesher
+    from mneslam_tpu_torch.mapping.mapper import Mapper, make_optimizer
+    from mneslam_tpu_torch.models.scene_rep import SceneRep
+    from mneslam_tpu_torch.ops import mc
+    from mneslam_tpu_torch.utils.convert import (params_from_jax,
+                                                 params_to_numpy)
+
+    t0 = time.perf_counter()
+    cfg = tiny_config(os.path.join(RUN_OUT, "mesh_parity"))
+    cfg["mapping"]["marching_cubes_bound"] = MESH_PARITY_BOUND
+    cfg["meshing"]["resolution"] = MESH_PARITY_VOXEL
+    item = SyntheticBoxDataset(cfg, num_frames=1)[0]
+    H, W = item["depth"].shape
+    rng = np.random.default_rng(1)
+    S = int(cfg["training"]["n_range_d"]) + int(cfg["training"]["n_samples_d"])
+    batches = [(rng.integers(0, H * W, 448),
+                rng.uniform(size=(448, S)).astype(np.float32))
+               for _ in range(MESH_PARITY_STEPS)]
+    cam = cfg["cam"]
+    intr = np.asarray([cam["fx"], cam["fy"], cam["cx"], cam["cy"]],
+                      np.float32)
+    observed = (item["c2w"][None], intr, H, W, item["depth"][None],
+                3.0 * float(cfg["training"]["trunc"]))
+    params_np = None
+    out = {}
+    for dev in ("cpu", "cuda"):
+        scene = SceneRep(cfg, dev)
+        mapper = Mapper(cfg, scene, num_kf=2, rays_per_kf=16)
+        state = mapper.init_state(torch.Generator(device=dev).manual_seed(0))
+        if params_np is None:
+            params_np = params_to_numpy(state.params)
+        state.params = params_from_jax(params_np, device=dev)
+        state.optimizer = make_optimizer(cfg, state.params)
+        f = {k: torch.as_tensor(item[k], device=dev)
+             for k in ("direction", "rgb", "depth", "c2w")}
+        for idx, u in batches:
+            i = torch.as_tensor(idx, device=dev)
+            o, d = rays_from_pose(f["direction"].reshape(-1, 3)[i], f["c2w"])
+            mapper.step(state, o, d, f["rgb"].reshape(-1, 3)[i],
+                        f["depth"].reshape(-1)[i][:, None],
+                        u=torch.as_tensor(u, device=dev))
+        bound = np.asarray(MESH_PARITY_BOUND, np.float32)
+        vol, _, _ = mesher.sdf_grid(scene, state.params, bound,
+                                    MESH_PARITY_VOXEL)
+        verts, faces, _ = mesher.extract_mesh(scene, state.params, cfg,
+                                              observed=observed)
+        out[dev] = (vol, verts, faces)
+    (vol_c, v_c, f_c), (vol_g, v_g, f_g) = out["cpu"], out["cuda"]
+    if not (len(v_g) and len(v_c)):
+        raise SystemExit(f"mesh parity: an empty mesh ({len(v_g)} GPU, "
+                         f"{len(v_c)} CPU vertices)")
+    n, area = n_eval_samples(v_g, f_g)
+    m = recon.eval_mesh(v_g, f_g, v_c, f_c, n_samples=n)
+    raw_n = mc.polygonize(vol_g, 0.0, 3.0)
+    raw_p = mc.polygonize(vol_g, 0.0, 3.0, native=False)
+    vn, fn = mc.marching_cubes(vol_g, 0.0, truncation=3.0)
+    vp, fp = mc.marching_cubes(vol_g, 0.0, truncation=3.0, native=False)
+
+    def rows(a):
+        return a[np.lexsort(a.T[::-1])]
+
+    return {
+        "seconds": time.perf_counter() - t0,
+        "grid": list(vol_g.shape),
+        "sdf_max_abs_diff": float(np.abs(vol_g - vol_c).max()),
+        "sdf_err_ratio": float((np.abs(vol_g - vol_c) / (
+            MESH_PARITY_SDF_RTOL * np.abs(vol_c) + MESH_PARITY_SDF_ATOL)
+        ).max()),
+        "verts_gpu": len(v_g), "verts_cpu": len(v_c),
+        "faces_gpu": len(f_g), "faces_cpu": len(f_c),
+        "area_m2": area, "n_samples": n,
+        "eval_gpu_vs_cpu": m,
+        "native_raw_equal": bool(np.array_equal(rows(raw_n), rows(raw_p))),
+        "native_faces_equal": bool(np.array_equal(rows(fn), rows(fp))),
+        "native_verts_max_diff": float(np.abs(vn - vp).max())
+        if vn.shape == vp.shape else float("inf"),
+    }
+
+
+def mesh_room0(slam, res):
+    """The mapping-only run's terminate wrote both meshes; its mesh step's
+    split from the agent's stage timers (host clock; the grid's stage waits
+    for the device), the grid's device part again with CUDA events, the
+    culled mesh against the box room's walls, and a mesh at
+    mesh.voxel_eval (a snapshot's cost) -> dict."""
+    import numpy as np
+    import torch
+
+    from mneslam_tpu_torch.eval import recon
+    from mneslam_tpu_torch.mapping import mesher
+    from mneslam_tpu_torch.ops import mc
+    from mneslam_tpu_torch.utils.metrics import StageTimers
+
+    t_phase = time.perf_counter()
+    mesh_dir = os.path.join(slam.out_dir, "mesh")
+    for name in ("final_mesh.ply", "final_mesh_culled.ply"):
+        if not os.path.exists(os.path.join(mesh_dir, name)):
+            raise SystemExit(f"mapping-only terminate wrote no {name}")
+    if not res.get("mesh_verts", 0) > 0 or \
+            not res.get("mesh_verts_culled", 0) > 0:
+        raise SystemExit(f"mapping-only terminate: empty mesh {res}")
+    cfg, scene, params = slam.config, slam.scene, slam.map_state.params
+    bound = np.asarray(cfg["mapping"]["marching_cubes_bound"],
+                       np.float32) * cfg["scale"]
+    stages = slam.timers.summary()
+    v, f, _ = mc.load_ply(os.path.join(mesh_dir, "final_mesh.ply"))
+    cv, cf, _ = mc.load_ply(os.path.join(mesh_dir, "final_mesh_culled.ply"))
+    gv, gf = box_room_mesh(BOX_HALF)
+    out = {"final": {
+        "seconds": {k: stages[k]["total_s"] for k in stages
+                    if k.startswith("mesh")},
+        "verts": len(v), "faces": len(f), "culled_verts": len(cv),
+        "culled_faces": len(cf),
+        # eval_mesh's own 200k samples, as the reference evaluation
+        "eval_culled_vs_box": recon.eval_mesh(cv, cf, gv, gf)}}
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    vol, origin, spacing = mesher.sdf_volume(
+        scene, params, bound, float(cfg["meshing"]["resolution"]))
+    end.record()
+    torch.cuda.synchronize()
+    out["final"]["grid"] = list(vol.shape)
+    out["final"]["sdf_grid_cuda_events_s"] = 1e-3 * start.elapsed_time(end)
+    out["final"]["weld_input"] = weld_input_split(
+        slam, vol.cpu().numpy(), origin, spacing)
+    del vol
+    timers = StageTimers()
+    t0 = time.perf_counter()
+    sv, sf, _ = mesher.extract_mesh(
+        scene, params, cfg, voxel_size=float(cfg["mesh"]["voxel_eval"]),
+        timers=timers)
+    out["voxel_eval"] = {
+        "total_s": time.perf_counter() - t0, "verts": len(sv),
+        "faces": len(sf), "seconds": {k: v["total_s"] for k, v in
+                                      timers.summary().items()}}
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def weld_input_split(slam, vol, origin, spacing):
+    """How much of the weld's input the observed-space filter keeps: the
+    raw triangle vertices of the final grid inside and outside the mapped
+    keyframes' observed space (the filter's test, on the card), and the
+    weld's time on the triangles wholly inside (terminate's "mesh/weld"
+    stage welds all of them) -> dict."""
+    import numpy as np
+    import torch
+
+    from mneslam_tpu_torch.mapping import cull
+    from mneslam_tpu_torch.ops import mc
+
+    cfg = slam.config
+    tri = mc.polygonize(vol, float(cfg["meshing"].get("level_set", 0.0)),
+                        3.0)
+    kf_poses, intr, H, W, depths, eps = slam._observed_space()
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device="cuda")
+
+    counts = cull.visible_counts(
+        dev(tri * spacing + origin), dev(kf_poses), dev(intr), dev(depths),
+        int(H), int(W), eps=float(eps) + float(np.linalg.norm(spacing)),
+        chunk=1 << 18).cpu().numpy()
+    inside = counts > 0
+    tri_in = tri[np.repeat(inside.reshape(-1, 3).all(axis=1), 3)]
+    t0 = time.perf_counter()
+    v, _ = mc.weld(tri_in)
+    return {"raw_verts": len(tri), "raw_verts_inside": int(inside.sum()),
+            "raw_verts_outside": int((~inside).sum()),
+            "weld_inside_s": time.perf_counter() - t0,
+            "weld_inside_verts": len(v)}
+
+
+def render_panel(slam):
+    """The last mapped keyframe of the mapping-only run rendered whole
+    (680 x 1200 rays through `render_image_rays`) on the card; its panel
+    written where matplotlib is present -> dict."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from mneslam_tpu_torch.eval import recon
+    from mneslam_tpu_torch.utils import vis
+
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    idx = int(slam.mapped_timestamps[-1])
+    frame, pose = slam._frame_for_mapping(idx)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    depth, rgb = slam.render_frame(frame, pose)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    mse = float(((rgb - frame["rgb"]) ** 2).mean())
+    out = {"matplotlib": have_mpl, "frame": idx,
+           "shape": list(depth.shape), "render_s": render_s,
+           "psnr_db": -10.0 * math.log10(max(mse, 1e-12)),
+           "depth_l1_cm": recon.depth_l1(depth.cpu().numpy(),
+                                         frame["depth"].cpu().numpy()),
+           "finite": bool(torch.isfinite(depth).all()
+                          and torch.isfinite(rgb).all())}
+    if have_mpl:
+        path = os.path.join(RUN_OUT, "eval_vis", f"kf_{idx:05d}.jpg")
+        vis.save_render_panel(path, frame["rgb"].cpu().numpy(),
+                              frame["depth"].cpu().numpy(),
+                              rgb.cpu().numpy(), depth.cpu().numpy(),
+                              title=f"room0 mapping-only keyframe {idx}")
+        out["panel"] = path
+    return out
+
+
+def resume_check():
+    """A tiny mapping run on the card interrupted after two keyframes
+    (0 and 3), its full state saved and loaded into a fresh agent, which
+    maps keyframe 6; against the uninterrupted run -> dict with the
+    largest parameter difference and kernel 1's launches after the
+    resume."""
+    import numpy as np
+
+    from mneslam_tpu_torch.data.synthetic import SyntheticBoxDataset
+    from mneslam_tpu_torch.models.scene_rep import param_items
+    from mneslam_tpu_torch.slam import MNESLAM
+
+    t0 = time.perf_counter()
+
+    def agent(exp):
+        cfg = tiny_config(os.path.join(RUN_OUT, "resume"))
+        cfg["data"]["exp_name"] = exp
+        return MNESLAM(cfg, SyntheticBoxDataset(cfg, num_frames=9),
+                       device="cuda")
+
+    def map_kf(a, idx):
+        frame, pose = a._frame_for_mapping(idx)
+        a._map_keyframe(idx, frame, pose, first=not a.first_frame_mapped)
+
+    full = agent("uninterrupted")
+    full.run_mapping_only(log_every=100)
+    part = agent("interrupted")
+    for idx in (0, 3):
+        map_kf(part, idx)
+    path = os.path.join(RUN_OUT, "resume", "full_state.npz")
+    part.save_full_state(path)
+    resumed = agent("resumed")
+    resumed.load_full_state(path)
+    reset_launches()
+    map_kf(resumed, 6)
+    launches = read_launches()["scatter_add_rows"]
+    diff = max(float((a.detach() - b.detach()).abs().max())
+               for (_, a), (_, b) in zip(param_items(full.map_state.params),
+                                         param_items(resumed.map_state.params)))
+    iters = int(resumed.config["mapping"]["iters"])
+    return {"seconds": time.perf_counter() - t0,
+            "state_mb": os.path.getsize(path) / 2 ** 20,
+            "max_param_diff": diff, "launches_after_resume": launches,
+            "expected_launches": SCATTERS_PER_ITER * iters,
+            "mapped": resumed.mapped_timestamps,
+            "psnr": [float(m["psnr"]) for m in full.metrics_log[-1:]]
+            + [float(resumed.metrics_log[-1]["psnr"])],
+            "finite": bool(np.isfinite(diff))}
+
+
 def main_path():
     """Mapping-only at room0 widths through the user entry point; -> (slam,
     cfg, metrics, seconds, scatter launches)."""
@@ -263,7 +613,7 @@ def main_path():
     cfg["mode"] = "mapping"
     cfg["data"]["output"] = RUN_OUT
     # the box room [-0.95, 0.95]^3 lies inside room0's mapping bound
-    ds = SyntheticBoxDataset(cfg, num_frames=11, half=0.95)
+    ds = SyntheticBoxDataset(cfg, num_frames=11, half=BOX_HALF)
     slam = MNESLAM(cfg, ds, rank=0, device="cuda")
 
     reset_launches()
@@ -325,52 +675,6 @@ def check_scatter(idx, vals, n_rows):
         raise SystemExit(f"scatter_add_rows disagrees with its plain version "
                          f"(n_rows {n_rows}): error / tolerance {ratio}")
     return float(err.max()), ratio
-
-
-def tracking_parity():
-    """Two factor-graph updates (correlation, ConvGRU, windowed BA) of one
-    tiny keyframe buffer with the same random DROID weights on the GPU and
-    on the CPU, fp32 -> {name: max abs difference}."""
-    import numpy as np
-    import torch
-
-    from mneslam_tpu_torch.models import droid_net
-    from mneslam_tpu_torch.ops import lie
-    from mneslam_tpu_torch.tracking.graph import FactorGraph
-    from mneslam_tpu_torch.utils.convert import video_state_from_numpy
-
-    B, HT, WD = 8, 12, 16
-    rng = np.random.default_rng(0)
-    xi = (0.05 * rng.normal(size=(B, 6))).astype(np.float32)
-    xi[0] = 0.0
-    feats = rng.normal(size=(3, B, 128, HT, WD)).astype(np.float32)
-    disps = (0.4 + 0.2 * rng.random((B, HT, WD))).astype(np.float32)
-    arrays = {
-        "timestamps": np.arange(B, dtype=np.float32),
-        "poses": lie.exp(torch.tensor(xi)).numpy(),
-        "poses_gt": np.tile(np.eye(4, dtype=np.float32), (B, 1, 1)),
-        "disps": disps, "disps_sens": disps,
-        "fmaps": feats[0], "nets": np.tanh(feats[1]),
-        "inps": np.maximum(feats[2], 0.0),
-        "damping": np.full((B, HT, WD), 1e-6, np.float32),
-    }
-    params = droid_net.init_droid_net(torch.Generator().manual_seed(0))
-    intr = np.array([12.0, 12.0, 7.5, 5.5], np.float32)
-    out = {}
-    for dev in ("cpu", "cuda"):
-        p = droid_net.map_params(params, lambda t: t.to(dev))
-        st = video_state_from_numpy(arrays, device=dev)
-        g = FactorGraph(B, HT, WD, capacity=24, params=p,
-                        intrinsics=torch.tensor(intr, device=dev), window=8)
-        g.add_neighborhood_factors(st, 0, 6, r=2)
-        with torch.no_grad():
-            for _ in range(2):
-                st = g.update(st, t0=1, t1=6, use_inactive=True)
-        n = g.n_active
-        out[dev] = {"poses": st.poses, "disps": st.disps,
-                    "target": g.target[:n], "weight": g.weight[:n]}
-    return {k: float((out["cuda"][k].cpu() - out["cpu"][k]).abs().max())
-            for k in TRACK_TOL}
 
 
 def tiny_slam_config(out_dir, exp_name="oracle"):
@@ -503,11 +807,12 @@ def _timed(obj, name: str, records: list, info):
     setattr(obj, name, wrapper)
 
 
-def slam_main_path(n_frames: int, exp_name: str):
+def slam_main_path(n_frames: int, exp_name: str, mesh_bound=None):
     """SLAM mode at room0 widths through the user entry point, the
     tracker's batches, loop BAs and global BAs timed as they run (each
     between two synchronisations); -> (slam, cfg, results, seconds,
-    launches, {"batches", "loop", "global"} call records)."""
+    launches, {"batches", "loop", "global"} call records). `mesh_bound`
+    replaces mapping.marching_cubes_bound (the terminate mesh's grid)."""
     import torch
 
     from mneslam_tpu_torch.config import make_config
@@ -524,7 +829,9 @@ def slam_main_path(n_frames: int, exp_name: str):
     # keyframe, so that the keyframe counts reach the backend's branches
     cfg["tracking"]["motion_filter"]["thresh"] = -1.0
     cfg["tracking"]["frontend"]["keyframe_thresh"] = -1.0
-    ds = SyntheticBoxDataset(cfg, num_frames=n_frames, half=0.95)
+    if mesh_bound is not None:
+        cfg["mapping"]["marching_cubes_bound"] = mesh_bound
+    ds = SyntheticBoxDataset(cfg, num_frames=n_frames, half=BOX_HALF)
     slam = MNESLAM(cfg, ds, rank=0, device="cuda")
     tracker, backend = slam.tracker, slam.tracker.backend
 
@@ -967,6 +1274,8 @@ def main():
     from mneslam_tpu_torch.tools.measure import (FP32_FLOPS, HBM_BYTES_PER_S,
                                                  cuda_ms)
     from mneslam_tpu_torch.tools.prof_corr import corr_impl
+    from mneslam_tpu_torch.tools.prof_determinism import (
+        deterministic, repeat_diff, tracking_parity_run)
 
     resolve_device("cuda")  # TF32 off
     os.makedirs(OUT, exist_ok=True)
@@ -978,21 +1287,60 @@ def main():
 
     # 2. build
     t0 = time.perf_counter()
-    libs = build.build_all()
-    log(f"build: {len(libs)} kernel(s) in {time.perf_counter() - t0:.2f} s: "
-        f"{sorted(libs)}")
+    libs = build.build_all(host=build.HOST_SOURCES)
+    log(f"build: {len(libs)} libraries (CUDA kernels and the host "
+        f"polygoniser) in {time.perf_counter() - t0:.2f} s: {sorted(libs)}")
 
     # 3. small parity, GPU vs CPU
     losses, rel, pdiff = small_parity()
     log(f"parity: losses cuda {losses['cuda']} cpu {losses['cpu']}; "
         f"max rel loss diff {rel:.3e}, max param diff {pdiff:.3e}")
-    if not (rel < 1e-4 and pdiff < 1e-4):
+    if not (rel < 1e-4 and pdiff < PARAM_TOL):
         raise SystemExit("parity: GPU and CPU mapper steps disagree")
 
-    # 4. tracking parity, GPU vs CPU
-    diffs = tracking_parity()
-    log(f"tracking parity (2 frontend updates, fp32, GPU vs CPU): max abs "
-        f"differences {json.dumps(diffs)}; tolerances {json.dumps(TRACK_TOL)}")
+    # 3b. mesh parity: the same tiny map meshed on the GPU and on the CPU
+    mp = mesh_parity()
+    log(f"mesh parity (tiny config, {MESH_PARITY_STEPS} identical mapper "
+        f"steps, extract_mesh with the keyframe's observed space): "
+        f"{json.dumps(mp)}")
+    if not mp["sdf_err_ratio"] <= 1.0:
+        raise SystemExit(
+            f"mesh parity: the GPU and CPU SDF volumes differ beyond rtol "
+            f"{MESH_PARITY_SDF_RTOL:g} / atol {MESH_PARITY_SDF_ATOL:g}")
+    if not abs(mp["verts_gpu"] - mp["verts_cpu"]) <= MESH_PARITY_VERTS:
+        raise SystemExit(f"mesh parity: the vertex counts differ by more "
+                         f"than {MESH_PARITY_VERTS}")
+    bad = [k for k in ("accuracy_cm", "completion_cm")
+           if not mp["eval_gpu_vs_cpu"][k] <= MESH_PARITY_CM]
+    if bad or not (mp["native_raw_equal"] and mp["native_faces_equal"]
+                   and mp["native_verts_max_diff"] <= 1e-5):
+        raise SystemExit(f"mesh parity: GPU and CPU meshes differ on {bad} "
+                         f"(limit {MESH_PARITY_CM} cm), or the native and "
+                         f"numpy polygonisers do")
+
+    # 4. tracking parity, GPU vs CPU: the GPU side twice by default (its
+    #    sums are not deterministic; printed) and twice with deterministic
+    #    algorithms throughout: those two must be bit-identical and hold
+    #    TRACK_TOL against the CPU
+    t0 = time.perf_counter()
+    cpu = tracking_parity_run("cpu")
+    runs = [tracking_parity_run("cuda") for _ in range(2)]
+    log(f"tracking parity, GPU by default: run 1 vs CPU "
+        f"{json.dumps(repeat_diff(runs[0], cpu))}; run 2 vs CPU "
+        f"{json.dumps(repeat_diff(runs[1], cpu))}; run 1 vs run 2 "
+        f"{json.dumps(repeat_diff(*runs))}")
+    with deterministic(True, True) as caught:
+        runs = [tracking_parity_run("cuda") for _ in range(2)]
+    diffs = repeat_diff(runs[0], cpu)
+    same = repeat_diff(*runs)
+    log(f"tracking parity (2 frontend updates, fp32, deterministic GPU vs "
+        f"CPU): max abs differences {json.dumps(diffs)}; tolerances "
+        f"{json.dumps(TRACK_TOL)}; the two deterministic GPU runs differ by "
+        f"{json.dumps(same)}; warnings "
+        f"{json.dumps(sorted({str(x.message)[:160] for x in caught}))}; "
+        f"phase {time.perf_counter() - t0:.1f} s")
+    if any(v != 0.0 for v in same.values()):
+        raise SystemExit("tracking parity: the deterministic GPU runs differ")
     bad = [k for k, v in diffs.items() if not v <= TRACK_TOL[k]]
     if bad:
         raise SystemExit(f"tracking parity: GPU and CPU disagree on {bad}")
@@ -1051,8 +1399,21 @@ def main():
     if not metrics[-1]["psnr"] > PSNR_FLOOR:
         raise SystemExit(f"last keyframe PSNR {metrics[-1]['psnr']} <= "
                          f"{PSNR_FLOOR}")
+    t0 = time.perf_counter()
     res = slam.terminate()
-    log(f"terminate: {res}")
+    log(f"terminate: {res}; {time.perf_counter() - t0:.2f} s, of which the "
+        f"mesh step {slam.timers.summary()['mesh']['total_s']} s")
+
+    # 7b. the mesh at room0 widths, step by step, and at mesh.voxel_eval
+    mesh = mesh_room0(slam, res)
+    log(f"room0 mesh (mapping-only map, {card}): {json.dumps(mesh)}")
+    # 7c. a render panel of the last keyframe
+    panel = render_panel(slam)
+    log(f"render panel: {json.dumps(panel)}"
+        + ("" if panel["matplotlib"] else
+           "; matplotlib is not installed: no jpg written (the render ran)"))
+    if not panel["finite"]:
+        raise SystemExit("render_image_rays gave non-finite values")
 
     # steady-state step times at the trained state (after the counted run)
     gen = torch.Generator(device="cuda")
@@ -1092,6 +1453,18 @@ def main():
         f"{iter_ms:.3f} ms iteration; table in {path}")
 
     map_launches = launches
+
+    # 7d. full-state checkpoint and resume on the card
+    resume = resume_check()
+    log(f"resume (tiny config, interrupted after keyframes 0 and 3, the "
+        f"full state loaded by a fresh agent that maps keyframe 6): "
+        f"{json.dumps(resume)}; parameter tolerance {PARAM_TOL}")
+    if not resume["max_param_diff"] < PARAM_TOL:
+        raise SystemExit("resume: the resumed run's parameters differ from "
+                         "the uninterrupted run's")
+    if resume["launches_after_resume"] != resume["expected_launches"]:
+        raise SystemExit("resume: kernel 1 launches after the resume "
+                         f"{resume['launches_after_resume']}")
 
     # 8. the SLAM main path past the frontend window
     log(f"SLAM main path: room0 widths (tracking 320 x 640, buffer 250, "
@@ -1156,6 +1529,18 @@ def main():
         raise SystemExit("non-finite or missing outputs of the SLAM path")
     stages = slam_s.timers.summary()
     log(f"SLAM host stage timers: {json.dumps(stages)}")
+    s_mesh_dir = os.path.join(slam_s.out_dir, "mesh")
+    mesh_steps = {k: v["total_s"] for k, v in stages.items()
+                  if k.startswith("mesh/")}
+    log(f"SLAM terminate mesh step: {stages['mesh']['total_s']} s for "
+        f"{n_map} keyframes, by step (s) {json.dumps(mesh_steps)}; "
+        f"mesh_verts {sres.get('mesh_verts')}, culled "
+        f"{sres.get('mesh_verts_culled')}")
+    if not (sres.get("mesh_verts", 0) > 0
+            and sres.get("mesh_verts_culled", 0) > 0
+            and all(os.path.exists(os.path.join(s_mesh_dir, n)) for n in
+                    ("final_mesh.ply", "final_mesh_culled.ply"))):
+        raise SystemExit("the SLAM path's terminate wrote no mesh")
 
     def per_frame_ms(batches):
         n = sum(after[0] - before[0] for _, before, after in batches)
@@ -1265,16 +1650,21 @@ def main():
         raise SystemExit(f"the profiled global BA took {gba_branch}")
 
     # 9. the same path with MNESLAM_CORR_IMPL=pallas_mxu: kernel 2b
+    # (its terminate meshes the box room's bound only: phase 8 meshes the
+    # whole room0 bound)
     with corr_impl("pallas_mxu"):
         mslam, _, mres, mseconds, mlaunches, mrec = slam_main_path(
-            MXU_FRAMES, "room0_slam_mxu")
+            MXU_FRAMES, "room0_slam_mxu",
+            mesh_bound=[[-BOX_HALF - 0.05, BOX_HALF + 0.05]] * 3)
     m_lookups = lookups(mslam)
     mbe = mslam.tracker.backend
     log(f"pallas_mxu path: {MXU_FRAMES} frames, {mslam.tracker.counter} "
         f"keyframes in {mseconds:.2f} s; {mbe.loop_bas} loop BAs, "
         f"{mbe.dense_bas} global BAs; {m_lookups} lookups; launches "
         f"{json.dumps(mlaunches)}; APE(sim3) rmse "
-        f"{mres['ate']['rmse']:.4f} m")
+        f"{mres['ate']['rmse']:.4f} m; terminate mesh step "
+        f"{mslam.timers.summary()['mesh']['total_s']} s (box bound), "
+        f"mesh_verts {mres.get('mesh_verts')}")
     if (mlaunches["corr_window_mma"] != m_lookups
             or mlaunches["corr_window"] or mlaunches["corr_window_per_level"]
             or not (mbe.loop_bas and mbe.dense_bas)):
@@ -1368,6 +1758,7 @@ def main():
         "launches": slaunches["scatter_add_rows"],
         "launches_by_path": {"slam": slaunches["scatter_add_rows"],
                              "mapping": map_launches,
+                             "after_resume": resume["launches_after_resume"],
                              "probes": probe_launches["scatter_add_rows"]},
         "max_abs_err": max_err,
         "max_err": max_err,

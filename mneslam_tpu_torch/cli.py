@@ -1,13 +1,16 @@
 """Command-line entry: one agent, SLAM or mapping-only mode.
 
     python -m mneslam_tpu_torch.cli --config CONFIG.yaml \
-        [--mode slam|mapping] [--output OUT] [--device cuda|cpu]
+        [--mode slam|mapping] [--output OUT] [--device cuda|cpu] \
+        [--resume FULL_STATE.npz]
 
 Runs on the GPU by default and raises when there is none, unless
-`--device cpu` is given. `--mode` overrides the config's `mode`. A SLAM run
-prints its APE (Sim(3)) line at the end and returns it in the result's
-"ate". Port of the single-agent paths of `mneslam_tpu/cli.py`; the
-multi-agent runner is not ported yet.
+`--device cpu` is given. `--mode` overrides the config's `mode`.
+`--resume` restores a full-state checkpoint (`MNESLAM.save_full_state`)
+before the run, which then continues from it. A SLAM run prints its APE
+(Sim(3)) line at the end and returns it in the result's "ate". Port of the
+single-agent paths of `mneslam_tpu/cli.py`; the multi-agent runner is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda; cpu only "
                          "when asked for)")
+    ap.add_argument("--resume", default=None,
+                    help="full-state checkpoint to restore before running")
     args = ap.parse_args(argv)
 
     from .config import default_config, deep_update, load_config
@@ -37,6 +42,8 @@ def main(argv=None):
     if args.mode is not None:
         cfg["mode"] = args.mode
     agent = MNESLAM(cfg, get_dataset(cfg), rank=0, device=args.device)
+    if args.resume:
+        agent.load_full_state(args.resume)
     if agent.mode == "slam":
         result = agent.run_slam()
     else:

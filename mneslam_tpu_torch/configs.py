@@ -1,11 +1,12 @@
 """Built-in configurations, as plain dicts (no YAML needed to use them).
 
 `ROOM0` holds the values of `configs/Replica/replica.yaml` merged with
-`configs/Replica/room0.yaml` for every key the mapping and tracking slices
-read (`tracking.motion_filter.batch` and the `backend` extras come from
-the defaults, as in the JAX package). Use it as `make_config(ROOM0)`. It
-keeps the file's `dataset: replica` and `mode: slam`; a caller without the
-Replica frames overrides `dataset` (e.g. `synthetic`).
+`configs/Replica/room0.yaml` for every key the mapping, tracking and
+meshing slices read (`tracking.motion_filter.batch` and the `backend`
+extras come from the defaults, as in the JAX package). Use it as
+`make_config(ROOM0)`. It keeps the file's `dataset: replica` and `mode:
+slam`; a caller without the Replica frames overrides `dataset` (e.g.
+`synthetic`).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ ROOM0 = {
         "w_sdf_center": 200,
         "w_sdf_tail": 30,
         "bound": [[-1.0, 7.0], [-1.3, 3.7], [-1.7, 1.4]],
+        "marching_cubes_bound": [[-1.0, 7.0], [-1.3, 3.7], [-1.7, 1.4]],
         "global_ba_every": 10,
     },
     "tracking": {
@@ -88,6 +90,9 @@ ROOM0 = {
         "trunc": 0.1,
         "is_co_sdf": True,
     },
+    "mesh": {"resolution": 512, "vis": 50, "voxel_eval": 0.05,
+             "voxel_final": 0.02},
+    "meshing": {"level_set": 0, "resolution": 0.02, "mesh_bound_scale": 1.02},
     "planes_res": {"coarse": 0.02, "fine": 0.01, "bound_dividable": 0.02},
     "model": {"c_dim": 32, "truncation": 0.1, "input_ch": 64,
               "input_ch_pos": 48},

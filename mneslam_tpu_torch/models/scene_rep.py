@@ -4,8 +4,11 @@ Port of `mneslam_tpu/models/scene_rep.py` for the mapping slice: coarse +
 fine tri-plane feature grids (ESLAM) sampled by the packed sampler, OneBlob
 positional encoding, tiny SDF/color MLPs, truncation-windowed SDF->weight
 compositing with depth-guided stratified sampling, and the rgb / depth /
-free-space / SDF loss suite. The model is a set of functions over a
-parameter dict:
+free-space / SDF loss suite, and the chunked no-grad queries and renders
+of meshing and evaluation (`query_sdf`, `query_color`,
+`render_surface_color`, `render_image_rays`; `query_tables` packs each
+plane once for them). The model is a set of functions over a parameter
+dict:
 
     {"planes": {"xy": [coarse, fine], "xz": [...], "yz": [...]},  # [C, H, W]
      "decoder": {"sdf": [W0, W1], "color": [W0, W1]}}             # [in, out]
@@ -135,25 +138,51 @@ class SceneRep:
         lo, hi = self.bounding_box[:, 0], self.bounding_box[:, 1]
         return (pts - lo) / (hi - lo)
 
-    def plane_feature_blocks(self, planes: Dict, p_nor: torch.Tensor) -> list:
+    def plane_feature_blocks(self, planes: Dict, p_nor: torch.Tensor,
+                             tables: Optional[Dict] = None) -> list:
         """Per-level feature blocks [N, C]: xy + xz + yz samples of that
-        level (ESLAM's summation)."""
-        uv_xy = p_nor[:, [0, 1]]
-        uv_xz = p_nor[:, [0, 2]]
-        uv_yz = p_nor[:, [1, 2]]
+        level (ESLAM's summation). `tables`: the planes already packed
+        (`query_tables`; forward only)."""
+        uv = {"xy": p_nor[:, [0, 1]], "xz": p_nor[:, [0, 2]],
+              "yz": p_nor[:, [1, 2]]}
         feats = []
         for lvl in range(len(planes["xy"])):
-            feats.append(interp.sample_plane_packed(planes["xy"][lvl], uv_xy)
-                         + interp.sample_plane_packed(planes["xz"][lvl], uv_xz)
-                         + interp.sample_plane_packed(planes["yz"][lvl], uv_yz))
+            xy, xz, yz = (
+                interp.sample_plane_packed(planes[name][lvl], uv[name])
+                if tables is None else interp.sample_packed_table(
+                    tables[name][lvl], uv[name], *planes[name][lvl].shape[1:])
+                for name in ("xy", "xz", "yz"))
+            feats.append(xy + xz + yz)
         return feats
 
-    def query_color_sdf(self, params: Dict, pts: torch.Tensor) -> torch.Tensor:
+    def query_color_sdf(self, params: Dict, pts: torch.Tensor,
+                        tables: Optional[Dict] = None) -> torch.Tensor:
         """World points [N, 3] -> raw [N, 4] (rgb logits, sdf)."""
         embed = self.plane_feature_blocks(params["planes"],
-                                          self._normalize(pts))
+                                          self._normalize(pts), tables)
         embed_pos = self.pos_encode(self._normalize01(pts))
         return decoder_lib.decoder_apply(params["decoder"], embed, embed_pos)
+
+    @torch.no_grad()
+    def query_tables(self, params: Dict) -> Dict:
+        """Every plane packed once (`interp.pack_corners`), for the chunked
+        queries of meshing and rendering: {"xy": [per level], ...}."""
+        return {name: [interp.pack_corners(p) for p in params["planes"][name]]
+                for name in ("xy", "xz", "yz")}
+
+    @torch.no_grad()
+    def query_sdf(self, params: Dict, pts: torch.Tensor,
+                  tables: Optional[Dict] = None) -> torch.Tensor:
+        """World points [..., 3] -> sdf [...]."""
+        raw = self.query_color_sdf(params, pts.reshape(-1, 3), tables)
+        return raw[:, 3].reshape(pts.shape[:-1])
+
+    @torch.no_grad()
+    def query_color(self, params: Dict, pts: torch.Tensor,
+                    tables: Optional[Dict] = None) -> torch.Tensor:
+        """World points [..., 3] -> rgb [..., 3] in [0, 1]."""
+        raw = self.query_color_sdf(params, pts.reshape(-1, 3), tables)
+        return torch.sigmoid(raw[:, :3]).reshape(*pts.shape[:-1], 3)
 
     # ------------------------------------------------------------------
     # rendering
@@ -188,6 +217,20 @@ class SceneRep:
             rgb_map = rgb_map + (1.0 - acc_map[..., None])
         return rgb_map, disp_map, acc_map, weights, depth_map, depth_var
 
+    @torch.no_grad()
+    def render_surface_color(self, params: Dict, points: torch.Tensor,
+                             normal: torch.Tensor,
+                             tables: Optional[Dict] = None) -> torch.Tensor:
+        """Colour at surface points [N, 3], composited along the normal
+        over n_range_d samples in [-trunc, trunc] -> rgb [N, 3]."""
+        n_rays = points.shape[0]
+        z_vals = _linspace(-self.trunc, self.trunc, self.n_range_d,
+                           points.device).expand(n_rays, self.n_range_d)
+        pts = points[:, None, :] + normal[:, None, :] * z_vals[..., None]
+        raw = self.query_color_sdf(params, pts.reshape(-1, 3),
+                                   tables).reshape(n_rays, self.n_range_d, 4)
+        return self.raw2outputs(raw, z_vals)[0]
+
     def sample_z_vals(self, target_d: torch.Tensor, n_rays: int,
                       generator: Optional[torch.Generator] = None,
                       u: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -210,31 +253,73 @@ class SceneRep:
                                 dim=-1).values
         else:
             z_vals = z_samples
+        return self._perturb(z_vals, generator, u)
 
-        if self.perturb and (u is not None or generator is not None):
-            mids = 0.5 * (z_vals[:, 1:] + z_vals[:, :-1])
-            upper = torch.cat([mids, z_vals[:, -1:]], -1)
-            lower = torch.cat([z_vals[:, :1], mids], -1)
-            if u is None:
-                u = torch.rand(z_vals.shape, generator=generator, device=dev)
-            z_vals = lower + (upper - lower) * u
-        return z_vals
+    def _perturb(self, z_vals: torch.Tensor,
+                 generator: Optional[torch.Generator],
+                 u: Optional[torch.Tensor]) -> torch.Tensor:
+        """Each sample moved uniformly within its bin (between the mids
+        of its neighbours) when `training.perturb` is set and either
+        pre-drawn uniforms `u` or a generator is given."""
+        if not (self.perturb and (u is not None or generator is not None)):
+            return z_vals
+        mids = 0.5 * (z_vals[:, 1:] + z_vals[:, :-1])
+        upper = torch.cat([mids, z_vals[:, -1:]], -1)
+        lower = torch.cat([z_vals[:, :1], mids], -1)
+        if u is None:
+            u = torch.rand(z_vals.shape, generator=generator,
+                           device=z_vals.device)
+        return lower + (upper - lower) * u
 
     def render_rays(self, params: Dict, rays_o: torch.Tensor,
-                    rays_d: torch.Tensor, target_d: torch.Tensor,
+                    rays_d: torch.Tensor, target_d: Optional[torch.Tensor],
                     generator: Optional[torch.Generator] = None,
-                    u: Optional[torch.Tensor] = None) -> Dict:
-        """Render a batch of rays [R, 3] with depth-guided samples."""
+                    u: Optional[torch.Tensor] = None,
+                    tables: Optional[Dict] = None) -> Dict:
+        """Render a batch of rays [R, 3] with depth-guided samples, or
+        without a target depth with n_samples uniform in [near, far]
+        (perturbed per bin when `training.perturb` is set and `u` or a
+        generator is given)."""
         n_rays = rays_o.shape[0]
-        z_vals = self.sample_z_vals(target_d, n_rays, generator, u)
+        if target_d is None:
+            z_vals = self._perturb(_linspace(
+                self.near, self.far, self.n_samples,
+                rays_o.device).expand(n_rays, self.n_samples), generator, u)
+        else:
+            z_vals = self.sample_z_vals(target_d, n_rays, generator, u)
         pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
-        raw = self.query_color_sdf(params, pts.reshape(-1, 3)).reshape(
-            n_rays, z_vals.shape[1], 4)
+        raw = self.query_color_sdf(params, pts.reshape(-1, 3),
+                                   tables).reshape(n_rays, z_vals.shape[1], 4)
         rgb_map, disp_map, acc_map, weights, depth_map, depth_var = \
             self.raw2outputs(raw, z_vals)
         return {"rgb": rgb_map, "depth": depth_map, "disp_map": disp_map,
                 "acc_map": acc_map, "depth_var": depth_var,
                 "z_vals": z_vals, "raw": raw, "weights": weights}
+
+    @torch.no_grad()
+    def render_image_rays(self, params: Dict, rays_o: torch.Tensor,
+                          rays_d: torch.Tensor,
+                          target_d: Optional[torch.Tensor] = None,
+                          chunk: int = 4096):
+        """Whole-image render without perturbation -> (depth [N], rgb
+        [N, 3]). The rays are padded to a multiple of `chunk` (origins and
+        directions with ones, target depths with zeros) and rendered
+        `chunk` at a time, as the JAX package's fixed-size batches are."""
+        n = rays_o.shape[0]
+        n_pad = (chunk - n % chunk) % chunk
+        ro = torch.cat([rays_o, rays_o.new_ones((n_pad, 3))])
+        rd = torch.cat([rays_d, rays_d.new_ones((n_pad, 3))])
+        td = None if target_d is None else torch.cat(
+            [target_d.reshape(-1), target_d.new_zeros((n_pad,))])
+        tables = self.query_tables(params)
+        depth, rgb = [], []
+        for s in range(0, n + n_pad, chunk):
+            out = self.render_rays(
+                params, ro[s:s + chunk], rd[s:s + chunk],
+                None if td is None else td[s:s + chunk], tables=tables)
+            depth.append(out["depth"])
+            rgb.append(out["rgb"])
+        return torch.cat(depth)[:n], torch.cat(rgb)[:n]
 
     # ------------------------------------------------------------------
     # losses

@@ -137,6 +137,17 @@ class _SamplePlanePacked(torch.autograd.Function):
         return d_plane, d_coords
 
 
+def sample_packed_table(table: torch.Tensor, coords: torch.Tensor, H: int,
+                        W: int) -> torch.Tensor:
+    """Forward of `sample_plane_packed` from a table already packed by
+    `pack_corners` (no autograd), so that a chunked query packs each plane
+    once: [H*W, 4C] table, coords [N, 2] -> [N, C], bit for bit the
+    packed sampler's forward."""
+    C = table.shape[1] // 4
+    idx, wx, wy = _cell(coords, H, W)
+    return _combine(table[idx], wx.to(table.dtype), wy.to(table.dtype), C)
+
+
 def sample_plane_packed(plane: torch.Tensor,
                         coords: torch.Tensor) -> torch.Tensor:
     """plane [C, H, W], coords [N, 2] in [-1, 1] -> [N, C]; equal to

@@ -19,15 +19,28 @@ the tracker runs a global BA over its history (the reference's
 BundleAdjustment thread).
 
 Outputs under `<data.output>/<data.exp_name>/agent_<rank>/`:
-`metrics.jsonl` (one line per mapped keyframe) and, at `terminate`,
-`final_checkpoint.npz` with the JAX package's key names, plus in SLAM mode
-`key_est_poses.npy`, `key_timestamps.npy`, `est_poses.npy` (every frame,
-from the trajectory filler) and `metrics_traj.txt` (APE after a Sim(3)
-alignment to the dataset's poses).
+`metrics.jsonl` (one line per mapped keyframe); every `mapping.vis`
+mapped keyframes a render panel `eval_vis/kf_<frame>.jpg`; every
+`mapping.mapping_save_stride` mapped keyframes a mesh snapshot
+`mesh/mesh_track_<frame>.ply` at `mesh.voxel_eval`. At `terminate`:
+`mesh/final_mesh.ply` (SDF grid on the device at `meshing.resolution`,
+marching tetrahedra on the host, bounded to the space the mapped
+keyframes observed) and `mesh/final_mesh_culled.ply` (frustum- and
+occlusion-culled against the keyframes' depths), both modes; a meshing
+failure is printed and does not end the run. Then `final_checkpoint.npz`
+with the JAX package's key names, plus in SLAM mode `key_est_poses.npy`,
+`key_timestamps.npy`, `est_poses.npy` (every frame, from the trajectory
+filler) and `metrics_traj.txt` (APE after a Sim(3) alignment to the
+dataset's poses).
 
-Not ported yet (ROADMAP.md): mesh extraction at terminate, the render
-panels (`mapping.vis`), periodic mesh snapshots, the full-state
-checkpoints (`--resume`) and the multi-agent hooks.
+`save_full_state` / `load_full_state` write and restore the whole agent
+in one `.npz` (map parameters, Adam state, keyframe DB, keyframe poses,
+the tracker's keyframe buffer and counters, the generator's state), so a
+run resumed from it continues as the uninterrupted run would
+(`cli --resume`). As in the JAX package, the factor graph's edges and the
+motion filter's last features are not in it.
+
+Not ported yet (ROADMAP.md): the multi-agent hooks.
 """
 
 from __future__ import annotations
@@ -40,12 +53,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .data import rays as rays_lib
 from .device import make_generator, resolve_device
 from .eval import ate as ate_lib
+from .mapping import cull
 from .mapping.mapper import Mapper
+from .mapping.mesher import extract_mesh
 from .models import droid_net
 from .models.scene_rep import SceneRep, param_items
-from .ops import lie
+from .ops import lie, mc
 from .tracking import video as video_lib
 from .tracking.tracker import Tracker
 from .tracking.trajectory_filler import PoseTrajectoryFiller
@@ -92,7 +108,7 @@ class MNESLAM:
         out_root = config["data"].get("output", "output")
         exp = config["data"].get("exp_name", "exp")
         self.out_dir = os.path.join(out_root, exp, f"agent_{rank}")
-        os.makedirs(self.out_dir, exist_ok=True)
+        os.makedirs(os.path.join(self.out_dir, "mesh"), exist_ok=True)
 
         self.scene = SceneRep(config, self.device)
         if self.mode == "mapping":
@@ -189,36 +205,81 @@ class MNESLAM:
                 self.map_state, metrics = self.mapper.optimize(
                     self.map_state, frame, pose_c2w, self.generator,
                     iters=int(self.config["mapping"]["iters"]))
-            self._post_map_bookkeeping(frame_idx, metrics)
+            self._post_map_bookkeeping(frame_idx, frame, pose_c2w, metrics)
         return metrics
 
-    def _post_map_bookkeeping(self, frame_idx: int, metrics):
+    def _post_map_bookkeeping(self, frame_idx: int, frame: Dict,
+                              pose_c2w: torch.Tensor, metrics):
         """Log the keyframe. The new entry keeps its device scalars; the
         entries before it are read back and written to metrics.jsonl now,
-        while this keyframe's steps may still run on the device."""
+        while this keyframe's steps may still run on the device. Then the
+        render panel every `mapping.vis` keyframes and the mesh snapshot
+        every `mapping.mapping_save_stride` keyframes (0 or absent: off)."""
         self.mapped_timestamps.append(float(frame_idx))
         self.metrics_log.append(dict(metrics))
         self._flush_metrics(upto=len(self.metrics_log) - 1)
 
+        vis_every = int(self.config["mapping"].get("vis", 0))
+        if vis_every > 0 and (len(self.mapped_timestamps) - 1) % vis_every == 0:
+            self._save_vis(frame_idx, frame, pose_c2w)
+        stride = int(self.config["mapping"].get("mapping_save_stride", 0))
+        if stride > 0 and len(self.mapped_timestamps) % stride == 0:
+            try:
+                extract_mesh(
+                    self.scene, self.map_state.params, self.config,
+                    voxel_size=float(self.config["mesh"]["voxel_eval"]),
+                    save_path=os.path.join(self.out_dir, "mesh",
+                                           f"mesh_track_{frame_idx}.ply"))
+            except Exception as e:  # a snapshot must not end the run
+                print(f"[agent {self.rank}] mesh snapshot failed: {e}")
+
+    def render_frame(self, frame: Dict, pose_c2w: torch.Tensor):
+        """Render a whole frame at its pose with depth-guided samples ->
+        (depth [H, W], rgb [H, W, 3]) on the device."""
+        H, W = frame["depth"].shape
+        rays_o, rays_d = rays_lib.rays_from_pose(
+            frame["direction"].reshape(-1, 3), pose_c2w)
+        depth, rgb = self.scene.render_image_rays(
+            self.map_state.params, rays_o, rays_d,
+            frame["depth"].reshape(-1), chunk=4096)
+        return depth.reshape(H, W), rgb.reshape(H, W, 3)
+
+    def _save_vis(self, frame_idx: int, frame: Dict, pose_c2w: torch.Tensor):
+        """The keyframe's render / residual panel (`utils/vis.py`)."""
+        from .utils import vis
+
+        depth, rgb = self.render_frame(frame, pose_c2w)
+        vis.save_render_panel(
+            os.path.join(self.out_dir, "eval_vis", f"kf_{frame_idx:05d}.jpg"),
+            frame["rgb"].cpu().numpy(), frame["depth"].cpu().numpy(),
+            rgb.cpu().numpy(), depth.cpu().numpy(),
+            title=f"agent {self.rank} keyframe {frame_idx}")
+
     def _flush_metrics(self, upto: Optional[int] = None):
         """Convert queued metrics_log entries to host floats and write them
         to metrics.jsonl; `upto` = flush entries with index < upto (default
-        all)."""
+        all). A resumed agent's log starts at its first new keyframe."""
         end = len(self.metrics_log) if upto is None else upto
+        first = len(self.mapped_timestamps) - len(self.metrics_log)
         while self._metrics_flushed < end:
             i = self._metrics_flushed
             entry = {k: float(v) for k, v in self.metrics_log[i].items()}
             self.metrics_log[i] = entry
-            self.timers.log_scalars(int(self.mapped_timestamps[i]), entry)
+            self.timers.log_scalars(int(self.mapped_timestamps[first + i]),
+                                    entry)
             self._metrics_flushed = i + 1
 
     # ------------------------------------------------------------------
 
     def run_mapping_only(self, log_every: int = 10):
-        """Map every keyframe_every-th frame at its ground-truth pose."""
+        """Map every keyframe_every-th frame at its ground-truth pose (a
+        resumed agent skips the frames it has mapped)."""
         every = int(self.config["mapping"]["keyframe_every"])
+        done = set(self.mapped_timestamps)
         t0 = time.time()
         for idx in range(0, len(self.dataset), every):
+            if float(idx) in done:
+                continue
             frame, pose = self._frame_for_mapping(idx)
             self._map_keyframe(idx, frame, pose,
                                first=not self.first_frame_mapped)
@@ -378,13 +439,20 @@ class MNESLAM:
     # ------------------------------------------------------------------
 
     def terminate(self):
-        """Flush the metric log and write final_checkpoint.npz; in SLAM
-        mode also key_est_poses.npy (GT-aligned c2w), key_timestamps.npy,
-        and from the trajectory filler over every frame est_poses.npy with
-        its APE (Sim(3), `results["ate"]`) in metrics_traj.txt
-        (slam.py:603-635 of the JAX package)."""
+        """Flush the metric log; write the final mesh bounded to the
+        observed space and its culled variant (`results["mesh_verts"]`,
+        `["mesh_verts_culled"]`); in SLAM mode key_est_poses.npy
+        (GT-aligned c2w), key_timestamps.npy, and from the trajectory
+        filler over every frame est_poses.npy with its APE (Sim(3),
+        `results["ate"]`) in metrics_traj.txt; then final_checkpoint.npz
+        (slam.py:649-707 of the JAX package)."""
         self._flush_metrics()
         results = {"keyframes": len(self.mapped_timestamps)}
+        with self.timers.stage("mesh"):
+            try:
+                results.update(self._final_meshes())
+            except Exception as e:  # meshing must not end the evaluation
+                print(f"[agent {self.rank}] meshing failed: {e}")
         if self.tracker is not None and self.tracker.counter > 1:
             n = self.tracker.counter
             st = self.tracker.state
@@ -426,6 +494,141 @@ class MNESLAM:
         self.timers.close()
         results["checkpoint"] = path
         return results
+
+    def _final_meshes(self) -> Dict:
+        """final_mesh.ply, bounded to the observed space, and
+        final_mesh_culled.ply -> their vertex counts."""
+        with self.timers.stage("mesh/observed_depths"):
+            observed = self._observed_space()
+        verts, faces, colors = extract_mesh(
+            self.scene, self.map_state.params, self.config,
+            save_path=os.path.join(self.out_dir, "mesh", "final_mesh.ply"),
+            observed=observed, timers=self.timers)
+        out = {"mesh_verts": len(verts)}
+        if len(verts) and observed is not None:
+            out["mesh_verts_culled"] = self._save_culled_mesh(
+                verts, faces, colors, observed)
+        return out
+
+    def _observed_space(self):
+        """(kf_poses, intrinsics, H, W, depths, eps) of the mapped
+        keyframes, for the observed-space bound of the mesh, or None before
+        any keyframe is mapped. eps is the meshing band, 3 x trunc."""
+        if not self.mapped_timestamps:
+            return None
+        n = min(len(self.mapped_timestamps), self.map_state.kf_poses.shape[0])
+        kf_poses = self.map_state.kf_poses[:n].cpu().numpy()
+        depths = np.stack([np.asarray(self.dataset[int(t)]["depth"])
+                           for t in self.mapped_timestamps[:n]])
+        H, W = depths.shape[1:]
+        cam = self.config["cam"]
+        intr = np.asarray([cam["fx"], cam["fy"], cam["cx"], cam["cy"]],
+                          np.float32)
+        eps = 3.0 * float(self.config["training"]["trunc"]) * \
+            float(self.config["data"]["sc_factor"])
+        return kf_poses, intr, H, W, depths, eps
+
+    def _save_culled_mesh(self, verts, faces, colors, observed) -> int:
+        """Frustum- and occlusion-cull the mesh against the mapped
+        keyframes' poses and depths (eps 0.08) and save it beside the raw
+        one -> its vertex count."""
+        kf_poses, intr, H, W, depths, _ = observed
+        with self.timers.stage("mesh/cull"):
+            cverts, cfaces, ccolors = cull.cull_mesh(
+                verts, faces, kf_poses, intr, H, W, depths=depths,
+                colors=colors, device=self.device)
+        if len(cverts):
+            mc.save_ply(os.path.join(self.out_dir, "mesh",
+                                     "final_mesh_culled.ply"),
+                        cverts, cfaces, ccolors)
+        return len(cverts)
+
+    # ------------------------------------------------------------------
+    # full-state checkpoint and resume
+    # ------------------------------------------------------------------
+
+    def full_state(self) -> Dict[str, np.ndarray]:
+        """The whole agent as {key: numpy array}: map parameters, Adam's
+        step and moments per parameter, the keyframe DB, keyframe poses,
+        the mapper's generator state, the host counters and, in SLAM mode,
+        the tracker's keyframe buffer (feature maps as float32) and
+        counters."""
+        ms = self.map_state
+        out = {}
+        for p, t in param_items(ms.params):
+            key = checkpoint_key(p)
+            out[f"params/{key}"] = t.detach().cpu().numpy()
+            st = ms.optimizer.state.get(t, {})
+            for name in ("step", "exp_avg", "exp_avg_sq"):
+                if name in st:
+                    out[f"adam/{key}/{name}"] = st[name].cpu().numpy()
+        out["db/rays"] = ms.db.rays.cpu().numpy()
+        out["db/frame_ids"] = ms.db.frame_ids.cpu().numpy()
+        out["db/count"] = np.asarray(ms.db.count, np.int64)
+        out["kf_poses"] = ms.kf_poses.cpu().numpy()
+        out["rng/generator"] = self.generator.get_state().numpy()
+        out["host/map_counter"] = np.asarray(self.map_counter, np.int64)
+        out["host/mapped_timestamps"] = np.asarray(self.mapped_timestamps,
+                                                   np.float64)
+        out["host/first_frame_mapped"] = np.asarray(self.first_frame_mapped)
+        out["host/frame_cursor"] = np.asarray(self._frame_cursor, np.int64)
+        out["host/last_global_ba"] = np.asarray(self._last_global_ba,
+                                                np.int64)
+        if self.tracker is not None:
+            for name, t in self.tracker.state._asdict().items():
+                out[f"video/{name}"] = t.float().cpu().numpy()
+            out["host/tracker_counter"] = np.asarray(self.tracker.counter,
+                                                     np.int64)
+            out["host/frontend_t1"] = np.asarray(self.tracker.frontend.t1,
+                                                 np.int64)
+            out["host/frontend_initialized"] = np.asarray(
+                self.tracker.frontend.is_initialized)
+        return out
+
+    def save_full_state(self, path: str):
+        """`full_state()` as one .npz at `path`, written to a temporary
+        name and then renamed, so a reader never sees half a file."""
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, **self.full_state())
+        os.replace(tmp, path)
+
+    def load_full_state(self, path: str):
+        """Restore `save_full_state`'s file into this agent, in place (the
+        optimizer keeps its references to the parameter tensors)."""
+        ms = self.map_state
+        with np.load(path, allow_pickle=False) as data, torch.no_grad():
+            for p, t in param_items(ms.params):
+                key = checkpoint_key(p)
+                t.copy_(torch.as_tensor(data[f"params/{key}"]))
+                if f"adam/{key}/step" in data:
+                    ms.optimizer.state[t] = {
+                        "step": torch.as_tensor(data[f"adam/{key}/step"]),
+                        **{name: torch.as_tensor(data[f"adam/{key}/{name}"],
+                                                 device=t.device)
+                           for name in ("exp_avg", "exp_avg_sq")}}
+                else:
+                    ms.optimizer.state.pop(t, None)
+            ms.db.rays.copy_(torch.as_tensor(data["db/rays"]))
+            ms.db.frame_ids.copy_(torch.as_tensor(data["db/frame_ids"]))
+            ms.db.count = int(data["db/count"])
+            ms.kf_poses.copy_(torch.as_tensor(data["kf_poses"]))
+            self.generator.set_state(torch.as_tensor(data["rng/generator"]))
+            self.map_counter = int(data["host/map_counter"])
+            self.mapped_timestamps = [
+                float(t) for t in data["host/mapped_timestamps"]]
+            self.first_frame_mapped = bool(data["host/first_frame_mapped"])
+            self._frame_cursor = int(data["host/frame_cursor"])
+            self._last_global_ba = int(data["host/last_global_ba"])
+            if self.tracker is not None and "video/poses" in data:
+                for name, t in self.tracker.state._asdict().items():
+                    t.copy_(torch.as_tensor(data[f"video/{name}"]))
+                self.tracker.counter = int(data["host/tracker_counter"])
+                self.tracker.frontend.t1 = int(data["host/frontend_t1"])
+                self.tracker.frontend.is_initialized = bool(
+                    data["host/frontend_initialized"])
+        self.metrics_log = []
+        self._metrics_flushed = 0
 
     # ------------------------------------------------------------------
 
