@@ -81,7 +81,33 @@ Phases, each of which must pass (any failure exits non-zero):
      (every result in probes.json beside the profile tables; the stream's
      indices in output/chip_smoke/real_stream.pt, the input of
      `mneslam_tpu_torch/tools/scatter_ablation.py`). The phase's time is
-     printed beside its budget of 90 s.
+     printed beside its budget of 90 s;
+ 12. multi-agent collaboration (`mneslam_tpu_torch/agents/`): 12a. on
+     phase 3's tiny config, GPU against CPU on the same inputs: the stub
+     descriptor (1e-6), NetVLAD with random weights (rtol 1e-4), render
+     alignment for 10 iterations (best c2w 1e-4, losses rtol 1e-4; kernel
+     1 never launches) and 3 distillation iterations through the idx / u
+     seams (parameters within 1e-4; 6 kernel-1 launches per iteration);
+     12b. phase 7's room0 map, a keyframe's pose perturbed and aligned back
+     at `mapping.sample` rays for `mapping.loop_iters` iterations: the
+     translation error under half its start and the best loss under a
+     quarter of the initial one; 12c. two agents under
+     `MultiAgentRunner.run_slam` at room0 widths with the ROOM0
+     collaboration keys, on frames 0-27 and 14-41 of one 42-frame
+     box-room trajectory (bf16 DROID encoders with random weights, the
+     update's flow and weights replaced by ground-truth reprojection
+     targets as in phases 5-6, every frame admitted; with the random
+     update net the key poses leave the room's bound and nothing is
+     distilled): both terminates' outputs, the descriptor DB holding every
+     mapped keyframe, a cross-agent loop aligned, a distillation by each
+     agent and its fused mesh, kernel 1's launches = 6 x (mapping +
+     distillation iterations), kernel 2's = the agents' lookups; times
+     per tracked frame, mapped keyframe, alignment, distillation and fused
+     mesh, and a torch.profiler table of 5 distillation iterations
+     (chiprun_out/chip_smoke/distill_profile.txt); 12d. `python -m
+     mneslam_tpu_torch.cli --num_agents 2 --spawn` on phase 3's tiny
+     config: both children exit 0 and write the on-disk exchange. The
+     phase's time is printed beside its budget of 240 s.
 Prints the kernels' JSON line, then as the last line
 {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc; imports
 nothing of JAX.
@@ -704,23 +730,22 @@ def tiny_slam_config(out_dir, exp_name="oracle"):
     })
 
 
-def oracle_slam(cfg, ds):
-    """`MNESLAM` on the GPU whose tracker update gets ground-truth
+def oracle_fns(ds, intr8):
+    """update_fn / agg_fn of a tracker whose update gets ground-truth
     reprojection targets in place of the DROID update (tests/
-    test_slam_full.py's oracle)."""
+    test_slam_full.py's oracle); intr8: the intrinsics at 1/8 of the
+    tracking resolution."""
     import numpy as np
     import torch
 
     from mneslam_tpu_torch.ops import lie, projective
-    from mneslam_tpu_torch.slam import MNESLAM
 
     flip = np.asarray(FLIP, np.float32)
     G0 = ds[0]["c2w"]
     gt = torch.stack([lie.from_matrix(torch.tensor(np.linalg.inv(
         flip @ np.linalg.inv(G0) @ ds[i]["c2w"] @ flip).astype(np.float32)))
         for i in range(len(ds))]).cuda()
-    intr8 = torch.tensor([60.0 / 8, 60.0 / 8, 47.5 / 8, 31.5 / 8],
-                         device="cuda")
+    intr8 = torch.as_tensor(intr8, dtype=torch.float32, device="cuda")
 
     def update_fn(params, state, ii, jj, net, corr, motion, coords1):
         idx = state.timestamps.long().clamp(0, len(gt) - 1)
@@ -733,6 +758,15 @@ def oracle_slam(cfg, ds):
         return (1e-4 * torch.ones((net.shape[0], h, w), device="cuda"),
                 torch.zeros((net.shape[0], 576, h, w), device="cuda"))
 
+    return update_fn, agg_fn
+
+
+def oracle_slam(cfg, ds):
+    """`MNESLAM` on the GPU with the oracle tracker update (tiny config)."""
+    from mneslam_tpu_torch.slam import MNESLAM
+
+    update_fn, agg_fn = oracle_fns(ds, [60.0 / 8, 60.0 / 8, 47.5 / 8,
+                                        31.5 / 8])
     return MNESLAM(cfg, ds, device="cuda", update_fn=update_fn,
                    agg_fn=agg_fn)
 
@@ -1258,6 +1292,578 @@ def tpu_probes(real, card) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# 12. multi-agent collaboration
+# ---------------------------------------------------------------------------
+
+# 12c: two agents' segments of one box-room trajectory of MA_FRAMES frames;
+# the shared frames give exact cross-agent descriptor matches. 28 frames
+# each: past the frontend window of 25, so loop BA runs
+MA_FRAMES = 42
+MA_SEGMENTS = ((0, 28), (14, 42))
+# phase 12's printed budget (not a failure when over)
+COLLAB_BUDGET_S = 240.0
+# 12b: the oracle alignment's perturbation and learning rates
+# (tests/test_multiagent.py:375-386)
+ORACLE_DAA = (0.06, -0.04, 0.05)
+ORACLE_DT = (0.08, -0.06, 0.05)
+ORACLE_LR = 0.01
+
+
+class FrameCache:
+    """A dataset whose frames are rendered once and kept: the synthetic
+    box room ray-casts each 680 x 1200 frame on the host, and the agents
+    read a frame up to five times (tracking, mapping, the filler, the
+    pose table and the observed space at terminate)."""
+
+    def __init__(self, ds):
+        self.ds, self.items = ds, {}
+        self.num_rays_to_save = ds.num_rays_to_save
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, i):
+        if i not in self.items:
+            self.items[i] = self.ds[i]
+        return dict(self.items[i])
+
+
+class Slice:
+    """Trajectory segment view of a dataset (start_index / end_index), as
+    tests/test_multiagent.py:405-415: frame ids restart at 0."""
+
+    def __init__(self, ds, lo, hi):
+        self.ds, self.lo, self.n = ds, lo, hi - lo
+        self.num_rays_to_save = ds.num_rays_to_save
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        item = self.ds[self.lo + i]
+        item["frame_id"] = i
+        return item
+
+
+def collab_parity():
+    """12a: the multi-agent layer's functions on phase 3's tiny config, GPU
+    against CPU on the same converted inputs -> dict of differences and
+    kernel-1 launches (alignment, distillation)."""
+    import numpy as np
+    import torch
+
+    from mneslam_tpu_torch.agents import fusion, netvlad
+    from mneslam_tpu_torch.data.synthetic import SyntheticBoxDataset
+    from mneslam_tpu_torch.mapping.mapper import Mapper, make_optimizer
+    from mneslam_tpu_torch.models.droid_net import map_params
+    from mneslam_tpu_torch.models.scene_rep import SceneRep, param_leaves
+    from mneslam_tpu_torch.ops import rotations
+    from mneslam_tpu_torch.utils.convert import (params_from_jax,
+                                                 params_to_numpy)
+
+    cfg = tiny_config(os.path.join(RUN_OUT, "collab_parity"))
+    ds = SyntheticBoxDataset(cfg, num_frames=8)
+    out = {}
+    # the stub descriptor of a frame
+    img = torch.as_tensor(ds[4]["rgb"])
+    d = {dev: netvlad.stub_descriptor(img.to(dev)).cpu()
+         for dev in ("cpu", "cuda")}
+    out["stub_max_abs"] = float((d["cuda"] - d["cpu"]).abs().max())
+    # NetVLAD, random weights, no whitening, a 64 x 80 image
+    nv = netvlad.init_netvlad_random(torch.Generator().manual_seed(0),
+                                     whiten=False)
+    x = torch.rand((1, 3, 64, 80), generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        ref = netvlad.netvlad_apply(nv, x)
+        got = netvlad.netvlad_apply(map_params(nv, lambda t: t.cuda()),
+                                    x.cuda()).cpu()
+    out["netvlad_max_rel"] = float(((got - ref).abs() / (ref.abs() + 1e-6))
+                                   .max())
+    out["netvlad_ok"] = bool(torch.allclose(got, ref, rtol=1e-4, atol=1e-6))
+
+    # a map trained on the CPU (40 steps on frame 4), on both devices
+    scene_cpu = SceneRep(cfg, "cpu")
+    m = Mapper(cfg, scene_cpu, num_kf=2, rays_per_kf=ds.num_rays_to_save)
+    g = torch.Generator().manual_seed(0)
+    st = m.init_state(g)
+    frame = {k: torch.as_tensor(ds[4][k]) for k in ("direction", "rgb",
+                                                    "depth")}
+    frame["frame_id"] = 4
+    m.first_frame_mapping(st, frame, torch.as_tensor(ds[4]["c2w"]), g,
+                          iters=40)
+    trained = params_to_numpy(st.params)
+    student0 = params_to_numpy(scene_cpu.init_params(
+        torch.Generator().manual_seed(3)))
+
+    base = np.asarray(ds[4]["c2w"], np.float32)
+    perturb = rotations.rot_trans_to_transform(
+        torch.tensor(ORACLE_DAA), torch.tensor(ORACLE_DT)).numpy()
+    target = (perturb @ base).astype(np.float32)
+    rng = np.random.default_rng(0)
+    dirs = np.asarray(ds[0]["direction"], np.float32).reshape(-1, 3)
+    rays = dirs[rng.integers(0, len(dirs), 256)]
+    iters, K, r = 3, 2, 64
+    poses = np.stack([ds[i]["c2w"] for i in (3, 5)]).astype(np.float32)
+    idx = rng.integers(0, len(dirs), (iters, K, r))
+    u = rng.uniform(size=(iters, K * r, 17)).astype(np.float32)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        def t(a):
+            return torch.as_tensor(a, device=dev)
+
+        scene = SceneRep(cfg, dev)
+        p = params_from_jax(trained, device=dev)
+        reset_launches()
+        best, best_loss, init_loss = fusion.align_pose_by_render(
+            scene, p, scene, p, t(base), t(target), t(rays), iters=10,
+            lr_rot=0.01, lr_trans=0.01)
+        align_launches = read_launches()["scatter_add_rows"]
+        mapper = Mapper(cfg, scene, num_kf=2,
+                        rays_per_kf=ds.num_rays_to_save)
+        state = mapper.init_state(torch.Generator(device=dev).manual_seed(0))
+        state.params = params_from_jax(student0, device=dev)
+        state.optimizer = make_optimizer(cfg, state.params)
+        reset_launches()
+        _, loss = fusion.distill(scene, p, mapper, state, t(poses), t(dirs),
+                                 iters=iters, rays_per_kf=r, idx=t(idx),
+                                 u=t(u))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        res[dev] = {"best": best.cpu(), "best_loss": float(best_loss),
+                    "init_loss": float(init_loss), "loss": float(loss),
+                    "params": [q.detach().cpu()
+                               for q in param_leaves(state.params)],
+                    "align_launches": align_launches,
+                    "distill_launches": read_launches()["scatter_add_rows"]}
+    c, gpu = res["cpu"], res["cuda"]
+    out["align_best_c2w_max_abs"] = float((gpu["best"] - c["best"]).abs()
+                                          .max())
+    out["align_best_loss_rel"] = abs(gpu["best_loss"] - c["best_loss"]) / \
+        abs(c["best_loss"])
+    out["align_init_loss_rel"] = abs(gpu["init_loss"] - c["init_loss"]) / \
+        abs(c["init_loss"])
+    out["align_losses_gpu"] = [gpu["init_loss"], gpu["best_loss"]]
+    out["distill_param_max_abs"] = max(
+        float((a - b).abs().max()) for a, b in zip(gpu["params"],
+                                                   c["params"]))
+    out["distill_loss_rel"] = abs(gpu["loss"] - c["loss"]) / abs(c["loss"])
+    out["align_launches"] = gpu["align_launches"]
+    out["distill_launches"] = gpu["distill_launches"]
+    out["distill_iters"] = iters
+    return out
+
+
+def oracle_alignment(slam, card):
+    """12b: phase 7's room0 map, keyframe 5's pose perturbed by
+    ORACLE_DAA / ORACLE_DT and aligned back by rendering at
+    `mapping.sample` rays for `mapping.loop_iters` iterations at the JAX
+    test's learning rate ORACLE_LR, then 5 iterations under the profiler
+    (chiprun_out/chip_smoke/align_profile.txt) -> dict."""
+    import numpy as np
+    import torch
+
+    from mneslam_tpu_torch.agents import fusion
+    from mneslam_tpu_torch.ops import rotations
+
+    cfg = slam.config
+    kf = int(slam.mapped_timestamps[1])
+    base = torch.as_tensor(np.asarray(slam.dataset[kf]["c2w"], np.float32),
+                           device="cuda")
+    perturb = rotations.rot_trans_to_transform(
+        torch.tensor(ORACLE_DAA, device="cuda"),
+        torch.tensor(ORACLE_DT, device="cuda"))
+    target = perturb @ base
+    dirs = np.asarray(slam.dataset[0]["direction"], np.float32).reshape(-1, 3)
+    sample = int(cfg["mapping"]["sample"])
+    rays = torch.as_tensor(
+        dirs[np.random.default_rng(0).integers(0, len(dirs), sample)],
+        device="cuda")
+    iters = int(cfg["mapping"]["loop_iters"])
+    kw = dict(iters=iters, lr_rot=ORACLE_LR, lr_trans=ORACLE_LR,
+              rgb_weight=float(cfg["training"]["rgb_weight"]),
+              depth_weight=float(cfg["training"]["depth_weight"]),
+              rot_rep=cfg["training"]["rot_rep"])
+    p = slam.map_state.params
+    fusion.align_pose_by_render(slam.scene, p, slam.scene, p, base, target,
+                                rays, **dict(kw, iters=2))   # warm-up
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best, best_loss, init_loss = fusion.align_pose_by_render(
+        slam.scene, p, slam.scene, p, base, target, rays, **kw)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    err0 = float((target[:3, 3] - base[:3, 3]).norm())
+    err1 = float((best[:3, 3] - base[:3, 3]).norm())
+    launches = read_launches()["scatter_add_rows"]
+    _, dev_ms, count, top = profiled(
+        lambda: fusion.align_pose_by_render(
+            slam.scene, p, slam.scene, p, base, target, rays,
+            **dict(kw, iters=5)),
+        1, os.path.join(OUT, "align_profile.txt"),
+        f"5 render-alignment iterations at room0 widths ({sample} rays)",
+        card)
+    return {"keyframe": kf, "rays": sample, "iters": iters,
+            "lr": [kw["lr_rot"], kw["lr_trans"]],
+            "trans_err_m": [err0, err1], "init_loss": float(init_loss),
+            "best_loss": float(best_loss), "seconds": sec,
+            "ms_per_iter": 1e3 * sec / iters,
+            "profile_kernel_ms_per_iter": dev_ms / 5,
+            "profile_launches_per_iter": count / 5,
+            "idle_share": 1.0 - dev_ms / 5 / (1e3 * sec / iters),
+            "profile_top_kernels": top, "scatter_launches": launches}
+
+
+def multiagent_slam():
+    """12c: two agents under `MultiAgentRunner.run_slam` with
+    `InMemoryComms`, each on a segment of one box-room trajectory, at room0
+    widths with the ROOM0 collaboration keys -> (agents, runner, results,
+    seconds, launches, records). The trackers' updates get ground-truth
+    reprojection targets (as phases 5-6): with the update net's random
+    weights the key poses leave room0's bound (up to 262 m on the H100),
+    no keyframe lies in the agents' overlap and nothing is distilled
+    (PERF.md section 6)."""
+    import torch
+
+    from mneslam_tpu_torch.agents import fusion
+    from mneslam_tpu_torch.agents.comms import InMemoryComms
+    from mneslam_tpu_torch.agents.runner import MultiAgentRunner
+    from mneslam_tpu_torch.config import make_config
+    from mneslam_tpu_torch.configs import ROOM0
+    from mneslam_tpu_torch.data.synthetic import SyntheticBoxDataset
+    from mneslam_tpu_torch.slam import MNESLAM
+
+    def config():
+        cfg = make_config(ROOM0)
+        cfg["dataset"] = "synthetic"
+        cfg["data"]["output"] = RUN_OUT
+        cfg["data"]["exp_name"] = "multiagent"
+        cfg["tracking"]["motion_filter"]["thresh"] = -1.0
+        cfg["tracking"]["frontend"]["keyframe_thresh"] = -1.0
+        # the meshes (terminate's and the fused one) over the box's bound
+        cfg["mapping"]["marching_cubes_bound"] = \
+            [[-BOX_HALF - 0.05, BOX_HALF + 0.05]] * 3
+        return cfg
+
+    cfgs = [config() for _ in MA_SEGMENTS]
+    frames = FrameCache(SyntheticBoxDataset(cfgs[0], num_frames=MA_FRAMES,
+                                            half=BOX_HALF))
+    agents = []
+    for r, (cfg, (lo, hi)) in enumerate(zip(cfgs, MA_SEGMENTS)):
+        seg = Slice(frames, lo, hi)
+        cam = cfg["cam"]   # no edge band in ROOM0
+        sx, sy = cam["W_out"] / cam["W"], cam["H_out"] / cam["H"]
+        update_fn, agg_fn = oracle_fns(seg, [
+            cam["fx"] * sx / 8, cam["fy"] * sy / 8, cam["cx"] * sx / 8,
+            cam["cy"] * sy / 8])
+        agents.append(MNESLAM(cfg, seg, rank=r, world_size=len(MA_SEGMENTS),
+                              device="cuda", update_fn=update_fn,
+                              agg_fn=agg_fn))
+    runner = MultiAgentRunner(agents, comms=InMemoryComms())
+    rec = {"batches": [[] for _ in agents], "hook": [[] for _ in agents],
+           "align": [], "distill": [], "fused_mesh": [], "loops": [],
+           "distill_args": None}
+
+    def counter(a):
+        return lambda: (a.tracker.counter,)
+
+    for i, (a, c) in enumerate(zip(agents, runner.collabs)):
+        _timed(a.tracker, "run_batch", rec["batches"][i], counter(a))
+        _timed(c, "on_keyframe_mapped", rec["hook"][i], counter(a))
+        _timed(c, "_save_fused_mesh", rec["fused_mesh"], counter(a))
+
+        def detect(kf, agent, rgb, orig=c.loop_detector.detect_and_add):
+            info = orig(kf, agent, rgb)
+            if info is not None:
+                rec["loops"].append((agent, kf, int(info["match_agent_id"]),
+                                     int(info["match_kf_id"]),
+                                     info["similarity"]))
+            return info
+        c.loop_detector.detect_and_add = detect
+
+    align, distill = fusion.align_pose_by_render, fusion.distill
+
+    def timed_align(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = align(*a, **k)
+        torch.cuda.synchronize()
+        rec["align"].append((time.perf_counter() - t0, k["iters"]))
+        return out
+
+    def timed_distill(*a, **k):
+        rec["distill_args"] = (a, dict(k))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = distill(*a, **k)
+        torch.cuda.synchronize()
+        rec["distill"].append((time.perf_counter() - t0, k["iters"]))
+        return out
+
+    fusion.align_pose_by_render, fusion.distill = timed_align, timed_distill
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        results = runner.run_slam()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        fusion.align_pose_by_render, fusion.distill = align, distill
+        for a, c in zip(agents, runner.collabs):
+            for obj, name in ((a.tracker, "run_batch"),
+                              (c, "on_keyframe_mapped"),
+                              (c, "_save_fused_mesh")):
+                delattr(obj, name)
+    return agents, runner, results, seconds, launches, rec
+
+
+def spawn_on_card():
+    """12d: `python -m mneslam_tpu_torch.cli --num_agents 2 --spawn` on
+    phase 3's tiny config (the children run on the card, the default
+    device) -> (exit code, seconds, missing outputs, the log's tail)."""
+    import yaml
+
+    out_dir = os.path.join(RUN_OUT, "spawn")
+    cfg = tiny_config(out_dir)
+    cfg["dataset"] = "synthetic"
+    cfg["data"].update(exp_name="mp", num_frames=6)
+    cfg["mapping"].update(loop_iters=20, distill_iters=20)
+    cfg["meshing"]["resolution"] = 0.25
+    cfg["loop_detection"].update(enabled=True, sim_threshold=0.95,
+                                 min_time_diff=100, loop_launch_th=2)
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "tiny.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "mneslam_tpu_torch.cli",
+                        "--config", path, "--num_agents", "2", "--spawn"],
+                       capture_output=True, text=True, cwd=ROOT, env=env,
+                       timeout=300)
+    sec = time.perf_counter() - t0
+    root = os.path.join(out_dir, "mp")
+    missing = []
+    for rank in (0, 1):
+        d = os.path.join(root, f"agent_{rank}")
+        for name in ("key_est_poses.npy", "key_timestamps.npy",
+                     "latest_checkpoint.npz", "metrics.jsonl",
+                     "final_checkpoint.npz"):
+            if not os.path.exists(os.path.join(d, name)):
+                missing.append(f"agent_{rank}/{name}")
+        ddir = os.path.join(d, "descriptors")
+        if not (os.path.isdir(ddir) and any(
+                f.endswith(".npz") for f in os.listdir(ddir))):
+            missing.append(f"agent_{rank}/descriptors/*.npz")
+    return r.returncode, sec, missing, (r.stdout[-1500:], r.stderr[-1500:])
+
+
+def profiled(fn, n, path, title, card):
+    """fn() run n times under torch.profiler -> (wall ms, kernel ms,
+    launches, top kernels) per run; the table, headed by the card's line,
+    goes to `path`."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0) / n
+    events = prof.key_averages()
+    kernels_run = [e for e in events if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation]
+    dev_ms = 1e-3 * sum(e.self_device_time_total
+                        for e in kernels_run) / n
+    count = sum(e.count for e in kernels_run) / n
+    top = sorted(kernels_run, key=lambda e: -e.self_device_time_total)
+    top_s = "; ".join(
+        f"{e.key[:60]} {1e-3 * e.self_device_time_total / n:.3f}"
+        for e in top[:6])
+    with open(path, "w") as f:
+        f.write(f"{card}: {title}\n"
+                + events.table(sort_by="self_cuda_time_total",
+                               row_limit=40))
+    return wall, dev_ms, count, top_s
+
+
+def multiagent_phase(card):
+    """12c: the multi-agent SLAM path at room0 widths, its checks and its
+    times -> launch counts. Raises SystemExit on a failed check."""
+    import numpy as np
+
+    from mneslam_tpu_torch.agents import fusion as fusion_mod
+
+    log(f"multi-agent SLAM path: room0 widths and collaboration keys, "
+        f"random DROID weights in bf16 with ground-truth reprojection "
+        f"targets in place of the update net's, two agents on frames "
+        f"{MA_SEGMENTS[0][0]}-{MA_SEGMENTS[0][1] - 1} and "
+        f"{MA_SEGMENTS[1][0]}-{MA_SEGMENTS[1][1] - 1} of a {MA_FRAMES}-frame "
+        f"box-room trajectory, meshes over the box's bound")
+    ma_agents, ma_runner, ma_res, ma_sec, ma_launches, ma_rec = \
+        multiagent_slam()
+    ma_n_map = [len(a.mapped_timestamps) for a in ma_agents]
+    ma_iters = [int(a.config["mapping"]["first_iters"])
+                + (n - 1) * int(a.config["mapping"]["iters"])
+                for a, n in zip(ma_agents, ma_n_map)]
+    ma_distill_iters = sum(it for _, it in ma_rec["distill"])
+    ma_lookups = sum(lookups(a) for a in ma_agents)
+    db_keys = sorted((int(e["agent_id"]), int(e["kf_id"]))
+                     for e in ma_runner.comms.descriptors())
+    want_keys = sorted((a.rank, int(t)) for a in ma_agents
+                       for t in a.mapped_timestamps)
+    cross = [lp for lp in ma_rec["loops"] if lp[0] != lp[2]]
+    collabs = ma_runner.collabs
+    ma_files = {f"agent_{a.rank}/{name}": os.path.exists(
+        os.path.join(a.out_dir, name)) for a in ma_agents
+        for name in ("est_poses.npy", "mesh/final_mesh.ply",
+                     "mesh/final_mesh_culled.ply", "mesh/fused_mesh.ply")}
+    pos = [np.abs(np.load(os.path.join(a.out_dir, "key_est_poses.npy"))[
+        :, :3, 3]).max() for a in ma_agents]
+    log(f"multi-agent SLAM path: {MA_FRAMES} frames in two segments in "
+        f"{ma_sec:.2f} s; largest camera-centre coordinate of the key "
+        f"poses {[round(float(v), 3) for v in pos]} m (the room0 bound "
+        f"{ma_agents[0].config['mapping']['bound']}); keyframes tracked "
+        f"{[a.tracker.counter for a in ma_agents]}, mapped {ma_n_map} "
+        f"({ma_iters} mapping iterations); descriptor DB "
+        f"{len(db_keys)} entries; loops detected {len(ma_rec['loops'])} "
+        f"({len(cross)} across agents), alignments "
+        f"{[c.alignments for c in collabs]}, closures accepted "
+        f"{[c.closures_accepted for c in collabs]} rejected "
+        f"{[c.closures_rejected for c in collabs]}; distillations "
+        f"{[c.distillations for c in collabs]} ({ma_distill_iters} "
+        f"iterations); {ma_lookups} lookups; launches "
+        f"{json.dumps(ma_launches)}; files {json.dumps(ma_files)}; APE(sim3) "
+        f"rmse {[round(r['ate']['rmse'], 4) for r in ma_res]} m (printed, "
+        f"not checked)")
+    want_scatter = SCATTERS_PER_ITER * (sum(ma_iters) + ma_distill_iters)
+    problems = [msg for msg, ok in (
+        ("a terminate output is missing", all(ma_files.values())),
+        (f"the descriptor DB {db_keys} is not every mapped keyframe "
+         f"{want_keys}", db_keys == want_keys),
+        ("no cross-agent loop detected and aligned",
+         cross and sum(c.alignments for c in collabs) >= 1),
+        ("an agent distilled from no other",
+         all(c.distillations >= 1 for c in collabs)),
+        (f"kernel 1 launches {ma_launches['scatter_add_rows']} != "
+         f"{SCATTERS_PER_ITER} x ({sum(ma_iters)} mapping + "
+         f"{ma_distill_iters} distillation iterations)",
+         ma_launches["scatter_add_rows"] == want_scatter),
+        (f"kernel 2 launches {ma_launches['corr_window']} != {ma_lookups} "
+         f"lookups", ma_launches["corr_window"] == ma_lookups),
+        ("kernel 2b or 3 launched", not (ma_launches["corr_window_mma"]
+                                         or ma_launches[
+                                             "corr_window_per_level"])),
+        ("non-finite trajectory", all(
+            math.isfinite(r["ate"]["rmse"]) for r in ma_res)))
+        if not ok]
+    if problems:
+        raise SystemExit(f"multi-agent SLAM path: {problems}")
+    ma_times = []
+    for i, a in enumerate(ma_agents):
+        frames_n = sum(after[0] - before[0]
+                       for _, before, after in ma_rec["batches"][i])
+        track_ms = 1e3 * sum(s for s, _, _ in ma_rec["batches"][i]) \
+            / max(frames_n, 1)
+        hook_s = sum(s for s, _, _ in ma_rec["hook"][i])
+        stages = a.timers.summary()
+        map_ms = 1e3 * (stages["map_keyframe"]["total_s"] - hook_s) \
+            / ma_n_map[i]
+        ma_times.append({
+            "agent": a.rank, "ms_per_tracked_frame": track_ms,
+            "frames": frames_n, "ms_per_mapped_keyframe": map_ms,
+            "hook_ms_per_keyframe": 1e3 * hook_s / ma_n_map[i],
+            "fill_trajectory_s": stages["fill_trajectory"]["total_s"],
+            "terminate_mesh_s": stages["mesh"]["total_s"]})
+    al_ms = [1e3 * s for s, _ in ma_rec["align"]]
+    di_ms = [1e3 * s for s, _ in ma_rec["distill"]]
+    fused_s = [s for s, _, _ in ma_rec["fused_mesh"]]
+    log(f"multi-agent times (host clock, each call between two "
+        f"synchronisations, {card}): {json.dumps(ma_times)}; "
+        f"{len(al_ms)} alignments, mean {sum(al_ms) / max(len(al_ms), 1):.1f}"
+        f" ms ({sum(al_ms) / max(sum(it for _, it in ma_rec['align']), 1):.3f}"
+        f" ms per iteration); {len(di_ms)} distillations, mean "
+        f"{sum(di_ms) / max(len(di_ms), 1):.1f} ms "
+        f"({sum(di_ms) / max(ma_distill_iters, 1):.3f} ms per iteration); "
+        f"fused mesh s {[round(s, 3) for s in fused_s]}; phase 12c "
+        f"{ma_sec:.2f} s")
+    d_args, d_kw = ma_rec["distill_args"]
+    path = os.path.join(OUT, "distill_profile.txt")
+    d_wall, d_dev, d_launches, d_top = profiled(
+        lambda: fusion_mod.distill(*d_args, **dict(d_kw, iters=5)), 1, path,
+        f"5 distillation iterations at room0 widths "
+        f"({d_kw['rays_per_kf']} rays x {d_args[4].shape[0]} keyframes)",
+        card)
+    iter_ms = sum(di_ms) / max(ma_distill_iters, 1)
+    log(f"distillation profile: per iteration {d_launches / 5:.0f} kernel "
+        f"launches, {d_dev / 5:.3f} ms of kernels, wall {d_wall / 5:.3f} ms "
+        f"under the profiler; against the {iter_ms:.3f} ms of an iteration "
+        f"timed without it the device idles "
+        f"{100 * (1 - d_dev / 5 / iter_ms):.1f}%; top kernels (ms per 5 "
+        f"iterations): {d_top}; table in {path}")
+    del ma_agents, ma_runner, d_args
+    return ma_launches
+
+
+def collaboration(slam, card):
+    """Phase 12 (12a-12d) on phase 7's map `slam` -> (12a's results, 12c's
+    launch counts). Raises SystemExit on a failed check."""
+    t12 = time.perf_counter()
+    # 12a. parity of the collaboration functions, GPU vs CPU
+    cp = collab_parity()
+    log(f"collab parity (tiny config, GPU vs CPU; stub 1e-6, NetVLAD rtol "
+        f"1e-4 / atol 1e-6, alignment c2w 1e-4 and losses rtol 1e-4, "
+        f"distilled parameters {PARAM_TOL}): {json.dumps(cp)}")
+    bad = [name for name, ok in (
+        ("stub_descriptor", cp["stub_max_abs"] <= 1e-6),
+        ("netvlad_apply", cp["netvlad_ok"]),
+        ("align_pose_by_render", cp["align_best_c2w_max_abs"] <= 1e-4
+         and cp["align_best_loss_rel"] <= 1e-4
+         and cp["align_init_loss_rel"] <= 1e-4),
+        ("distill", cp["distill_param_max_abs"] < PARAM_TOL)) if not ok]
+    if bad:
+        raise SystemExit(f"collab parity: GPU and CPU disagree on {bad}")
+    if (cp["align_launches"] != 0 or cp["distill_launches"]
+            != SCATTERS_PER_ITER * cp["distill_iters"]):
+        raise SystemExit(f"collab parity: kernel 1 launched "
+                         f"{cp['align_launches']} times in the alignment "
+                         f"(expected 0) and {cp['distill_launches']} in "
+                         f"the distillation (expected "
+                         f"{SCATTERS_PER_ITER} x {cp['distill_iters']})")
+
+    # 12b. oracle alignment on phase 7's room0 map
+    oa = oracle_alignment(slam, card)
+    log(f"oracle alignment (room0 mapping-only map, {card}): "
+        f"{json.dumps(oa)}")
+    e0, e1 = oa["trans_err_m"]
+    if not (e1 < 0.5 * e0 and oa["best_loss"] < 0.25 * oa["init_loss"]):
+        raise SystemExit(f"oracle alignment: translation error {e0} -> {e1} "
+                         f"m, loss {oa['init_loss']} -> {oa['best_loss']}")
+    if oa["scatter_launches"]:
+        raise SystemExit("oracle alignment launched kernel 1")
+
+    # 12c. the multi-agent SLAM path at room0 widths
+    ma_launches = multiagent_phase(card)
+
+    # 12d. one process per agent on the card
+    rc, sp_sec, missing, tail = spawn_on_card()
+    log(f"spawn (--num_agents 2 --spawn, phase 3's tiny config, children on "
+        f"the card): exit {rc} in {sp_sec:.1f} s; missing {missing}")
+    if rc != 0 or missing:
+        raise SystemExit(f"spawn: exit {rc}, missing {missing}; {tail}")
+    t12 = time.perf_counter() - t12
+    log(f"phase 12 {t12:.1f} s of its budget of {COLLAB_BUDGET_S:.0f} s"
+        + (": OVER BUDGET, shorten the segments" if t12 > COLLAB_BUDGET_S
+           else ""))
+    return cp, ma_launches
+
+
 def main():
     import numpy as np
     import torch
@@ -1581,32 +2187,6 @@ def main():
         f"{1e3 * stages['map_keyframe']['total_s'] / n_map:.1f} ms per "
         f"mapped keyframe (mean, the first with 500 iterations) on {card}")
 
-    def profiled(fn, n, path, title):
-        """fn() run n times under torch.profiler -> (wall ms, kernel ms,
-        launches, top kernels) per run; the table goes to `path`."""
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0) / n
-        events = prof.key_averages()
-        kernels_run = [e for e in events if e.device_type == DeviceType.CUDA
-                       and not e.is_user_annotation]
-        dev_ms = 1e-3 * sum(e.self_device_time_total
-                            for e in kernels_run) / n
-        count = sum(e.count for e in kernels_run) / n
-        top = sorted(kernels_run, key=lambda e: -e.self_device_time_total)
-        top_s = "; ".join(f"{e.key[:60]} {1e-3 * e.self_device_time_total / n:.3f}"
-                          for e in top[:6])
-        with open(path, "w") as f:
-            f.write(f"{card}: {title}\n"
-                    + events.table(sort_by="self_cuda_time_total",
-                                   row_limit=40))
-        return wall, dev_ms, count, top_s
-
     # frontend updates at the final state (after the counted run)
     st = tracker.state
     with torch.no_grad():
@@ -1623,7 +2203,7 @@ def main():
         _, upd_dev_ms, upd_launches, top_s = profiled(
             lambda: graph.update(tracker.state, use_inactive=True), 3, path,
             f"3 frontend updates at room0 widths ({graph.n_active} active "
-            f"edges)")
+            f"edges)", card)
     log(f"tracking profile: {upd_launches:.0f} kernel launches and "
         f"{upd_dev_ms:.3f} ms of kernels per frontend update, i.e. the "
         f"device idles {100 * (1 - upd_dev_ms / upd_ms):.1f}% of the "
@@ -1636,7 +2216,7 @@ def main():
     path = os.path.join(OUT, "global_ba_profile.txt")
     gba_ms, gba_dev_ms, gba_launches, gtop = profiled(
         lambda: tracker.global_ba(steps=1), 1, path,
-        f"one global-BA step over {tracker.counter} keyframes")
+        f"one global-BA step over {tracker.counter} keyframes", card)
     gba_branch = branch(before, (tracker.counter,
                                  tracker.backend.sparse_updates,
                                  tracker.backend.chunked_updates))
@@ -1750,6 +2330,9 @@ def main():
         + (": OVER BUDGET, trim the sweep" if probes["seconds"] > 90
            else ""))
 
+    # 12. multi-agent collaboration
+    cp, ma_launches = collaboration(slam, card)
+
     kernels = [{
         "name": "scatter_add_rows",
         "route": "cuda",
@@ -1759,7 +2342,10 @@ def main():
         "launches_by_path": {"slam": slaunches["scatter_add_rows"],
                              "mapping": map_launches,
                              "after_resume": resume["launches_after_resume"],
-                             "probes": probe_launches["scatter_add_rows"]},
+                             "probes": probe_launches["scatter_add_rows"],
+                             "multiagent": ma_launches["scatter_add_rows"],
+                             "collab_parity_distill":
+                                 cp["distill_launches"]},
         "max_abs_err": max_err,
         "max_err": max_err,
         "tolerance": f"{SCATTER_RTOL:g} x sum|vals| + {SCATTER_ATOL:g}",
@@ -1780,7 +2366,8 @@ def main():
         corr, "corr_window", "corr_window", "corr_window.cu", ":176",
         slaunches["corr_window"],
         {"slam": slaunches["corr_window"],
-         "oracle_backend": b_launches["corr_window"], "mapping": 0},
+         "oracle_backend": b_launches["corr_window"], "mapping": 0,
+         "multiagent": ma_launches["corr_window"]},
         CORR_RTOL, **probes["corr_window"],
         probe_launches=probe_launches["corr_window"],
         frontend_update_ms=upd_ms, frontend_update_device_ms=upd_dev_ms,

@@ -1,8 +1,8 @@
 """Built-in configurations, as plain dicts (no YAML needed to use them).
 
 `ROOM0` holds the values of `configs/Replica/replica.yaml` merged with
-`configs/Replica/room0.yaml` for every key the mapping, tracking and
-meshing slices read (`tracking.motion_filter.batch` and the `backend`
+`configs/Replica/room0.yaml` for every key the mapping, tracking, meshing
+and multi-agent slices read (`tracking.motion_filter.batch` and the `backend`
 extras come from the defaults, as in the JAX package). Use it as
 `make_config(ROOM0)`. It keeps the file's `dataset: replica` and `mode:
 slam`; a caller without the Replica frames overrides `dataset` (e.g.
@@ -32,6 +32,10 @@ ROOM0 = {
         "bound": [[-1.0, 7.0], [-1.3, 3.7], [-1.7, 1.4]],
         "marching_cubes_bound": [[-1.0, 7.0], [-1.3, 3.7], [-1.7, 1.4]],
         "global_ba_every": 10,
+        "loop_iters": 100,
+        "distill_iters": 100,
+        "lr_rot": 0.001,
+        "lr_trans": 0.001,
     },
     "tracking": {
         "pretrained": "checkpoints/droid.pth",
@@ -96,4 +100,22 @@ ROOM0 = {
     "planes_res": {"coarse": 0.02, "fine": 0.01, "bound_dividable": 0.02},
     "model": {"c_dim": 32, "truncation": 0.1, "input_ch": 64,
               "input_ch_pos": 48},
+    "distillation": {"use_bound_overlap": True},
+    "loop_closure": {"pose_decay_sigma": 10.0, "pose_decay_min_weight": 0.1},
+    "loop_detection": {
+        "enabled": True,
+        "sim_threshold": 0.8,
+        "min_time_diff": 20,
+        "loop_launch_th": 20,
+        "min_matches_for_fusion": 3,
+    },
+    "model_name": "VGG16-NetVLAD-Pitts30K",
+    "checkpoints": {
+        "VGG16-NetVLAD-Pitts30K": "checkpoints/VGG16-NetVLAD-Pitts30K.mat",
+        "VGG16-NetVLAD-TokyoTM": "checkpoints/VGG16-NetVLAD-TokyoTM.mat",
+    },
+    "loop_bound": {
+        "bound_0": [[-1.0, 7.0], [-1.3, 3.7], [-1.7, 1.4]],
+        "bound_1": [[-1.0, 7.0], [-1.3, 3.7], [-1.7, 1.4]],
+    },
 }

@@ -444,3 +444,10 @@ def param_items(params: Dict, prefix=()) -> list:
     else:
         out.append((prefix, params))
     return out
+
+
+def checkpoint_key(path) -> str:
+    """The JAX package's npz key of a parameter path, e.g.
+    "['planes']/['xy']/[1]" (`"/".join(str(k) for k in path)` over its
+    DictKey / SequenceKey entries)."""
+    return "/".join(f"[{k!r}]" for k in path)

@@ -1,13 +1,15 @@
-"""SE(3) operations on plain tensors.
+"""SE(3) and Sim(3) operations on plain tensors.
 
-Port of the SE(3) part of `mneslam_tpu/ops/lie.py`. Poses are `[..., 7]`
+Port of `mneslam_tpu/ops/lie.py`. Poses are `[..., 7]`
 tensors `[tx, ty, tz, qx, qy, qz, qw]` (translation + unit quaternion,
 scalar last, the reference keyframe buffer's layout); tangent vectors are
 `[..., 6] = [tau, phi]`, translation first; retraction is left
 multiplication, `retr(X, xi) = exp(xi) * X`. Every function broadcasts
 over leading dims. The exp/log Taylor branches near theta = 0 use the same
 thresholds as the JAX package; both branches are computed and selected
-with `torch.where`, so nothing reads back to the host.
+with `torch.where`, so nothing reads back to the host. Sim(3) elements are
+`[..., 8] = [t(3), q(4), s(1)]` with tangent `[tau(3), phi(3), sigma(1)]`
+(lietorch's layout); `slerp` interpolates unit quaternions.
 """
 
 from __future__ import annotations
@@ -237,3 +239,109 @@ def adjT_apply(a: torch.Tensor, J: torch.Tensor) -> torch.Tensor:
 def retr(a: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
     """Left retraction exp(xi) * a (the BA update convention)."""
     return mul(exp(xi), a)
+
+
+def slerp(q0: torch.Tensor, q1: torch.Tensor, t, eps: float = 1e-7
+          ) -> torch.Tensor:
+    """Spherical interpolation of unit quaternions along the short arc,
+    linear (then normalised) within eps of 0 degrees. `t` broadcasts
+    against [..., 1]; a `t` with one dim fewer than q0 gets one added."""
+    t = torch.as_tensor(t, dtype=q0.dtype, device=q0.device)
+    if t.dim() == q0.dim() - 1:
+        t = t[..., None]
+    dot = (q0 * q1).sum(-1, keepdim=True)
+    q1 = torch.where(dot < 0, -q1, q1)
+    dot = dot.abs().clamp(-1.0, 1.0)
+    theta = torch.acos(dot.clamp(0.0, 1.0 - eps))
+    sin_theta = theta.sin().clamp(min=eps)
+    use_lerp = dot > 1.0 - eps
+    w0 = torch.where(use_lerp, 1.0 - t, ((1.0 - t) * theta).sin() / sin_theta)
+    w1 = torch.where(use_lerp, t, (t * theta).sin() / sin_theta)
+    return quat_normalize(w0 * q0 + w1 * q1)
+
+
+# ---------------------------------------------------------------------------
+# Sim(3): [..., 8] = [t(3), q(4), s(1)]
+# ---------------------------------------------------------------------------
+
+def sim3_identity(shape=(), dtype=torch.float32, device=None) -> torch.Tensor:
+    e = torch.zeros(tuple(shape) + (8,), dtype=dtype, device=device)
+    e[..., 6] = 1.0
+    e[..., 7] = 1.0
+    return e
+
+
+def sim3_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a*b)(x) = a(b(x)) with x -> s R x + t."""
+    t = a[..., :3] + a[..., 7:8] * quat_rotate(a[..., 3:7], b[..., :3])
+    q = quat_mul(a[..., 3:7], b[..., 3:7])
+    return torch.cat([t, q, a[..., 7:8] * b[..., 7:8]], dim=-1)
+
+
+def sim3_inv(a: torch.Tensor) -> torch.Tensor:
+    qc = quat_conj(a[..., 3:7])
+    s_inv = 1.0 / a[..., 7:8]
+    t = -s_inv * quat_rotate(qc, a[..., :3])
+    return torch.cat([t, qc, s_inv], dim=-1)
+
+
+def sim3_act(a: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    return a[..., 7:8] * quat_rotate(a[..., 3:7], p) + a[..., :3]
+
+
+def sim3_act4(a: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Homogeneous-depth action: (s R p + d t, d)."""
+    xyz = a[..., 7:8] * quat_rotate(a[..., 3:7], p[..., :3]) \
+        + p[..., 3:4] * a[..., :3]
+    return torch.cat([xyz, p[..., 3:4].expand(xyz.shape[:-1] + (1,))], -1)
+
+
+def sim3_exp(xi: torch.Tensor) -> torch.Tensor:
+    """sim(3) [..., 7] = [tau, phi, sigma] -> Sim(3) [..., 8]: t = W tau
+    with W = A I + B Phi + C Phi^2 (Strasdat's Sim(3) left Jacobian),
+    Taylor-guarded at small sigma and small theta."""
+    tau, phi, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    q = so3_exp(phi)
+    s = sigma.exp()
+    theta_sq = (phi * phi).sum(-1)
+    theta = theta_sq.clamp(min=1e-24).sqrt()
+    Phi = _skew(phi)
+    eye = torch.eye(3, dtype=xi.dtype, device=xi.device)
+
+    small_sig = sigma.abs() < 1e-6
+    sig_safe = torch.where(small_sig, torch.ones_like(sigma), sigma)
+    A_s = torch.where(small_sig, 1.0 + sigma / 2.0, (s - 1.0) / sig_safe)
+
+    small_th = theta_sq < 1e-8
+    th_safe = torch.where(small_th, torch.ones_like(theta), theta)
+    denom = sigma * sigma + theta_sq
+    denom = torch.where(denom < 1e-12, torch.ones_like(denom), denom)
+    a_coef = s * theta.sin()
+    b_coef = s * theta.cos()
+    B_small = torch.where(small_sig, 0.5 + sigma / 3.0,
+                          ((sigma - 1.0) * s + 1.0) / sig_safe.square())
+    B = torch.where(small_th, B_small,
+                    (a_coef * sigma + (1.0 - b_coef) * theta)
+                    / (th_safe * denom))
+    C_num = A_s - ((b_coef - 1.0) * sigma + a_coef * theta) / denom
+    C = torch.where(small_th, torch.full_like(theta, 1.0 / 6.0),
+                    C_num / torch.where(small_th, torch.ones_like(theta_sq),
+                                        theta_sq))
+    W = (A_s[..., None, None] * eye + B[..., None, None] * Phi
+         + C[..., None, None] * (Phi @ Phi))
+    t = (W @ tau[..., None])[..., 0]
+    return torch.cat([t, q, s[..., None]], dim=-1)
+
+
+def sim3_log(a: torch.Tensor) -> torch.Tensor:
+    """Sim(3) [..., 8] -> sim(3) [..., 7]: phi and sigma in closed form,
+    then W tau = t solved with W's columns rebuilt by `sim3_exp`."""
+    phi = so3_log(a[..., 3:7])
+    sigma = a[..., 7].log()
+    basis = torch.eye(3, dtype=a.dtype, device=a.device)
+    cols = [sim3_exp(torch.cat([basis[k].expand(phi.shape), phi,
+                                sigma[..., None]], dim=-1))[..., :3]
+            for k in range(3)]
+    W = torch.stack(cols, dim=-1)
+    tau = torch.linalg.solve(W, a[..., :3, None])[..., 0]
+    return torch.cat([tau, phi, sigma[..., None]], dim=-1)

@@ -40,7 +40,13 @@ run resumed from it continues as the uninterrupted run would
 (`cli --resume`). As in the JAX package, the factor graph's edges and the
 motion filter's last features are not in it.
 
-Not ported yet (ROADMAP.md): the multi-agent hooks.
+Multi-agent hooks (`agents/runner.py`): `world_size`, and `collab`, set
+by `MultiAgentRunner`, whose `on_keyframe_mapped` runs after every mapped
+keyframe with the agent's raw (tracker-world) keyframe poses. Under
+`loop_closure.map_aligned` the collaboration layer overrides the map's
+keyframe slots with the closure-deformed trajectory
+(`set_aligned_kf_poses`); the raw poses stay retrievable
+(`kf_poses_raw`), and only they feed the closure math.
 """
 
 from __future__ import annotations
@@ -60,7 +66,7 @@ from .mapping import cull
 from .mapping.mapper import Mapper
 from .mapping.mesher import extract_mesh
 from .models import droid_net
-from .models.scene_rep import SceneRep, param_items
+from .models.scene_rep import SceneRep, checkpoint_key, param_items
 from .ops import lie, mc
 from .tracking import video as video_lib
 from .tracking.tracker import Tracker
@@ -68,38 +74,34 @@ from .tracking.trajectory_filler import PoseTrajectoryFiller
 from .utils.metrics import StageTimers
 
 
-def checkpoint_key(path) -> str:
-    """The JAX package's npz key for a parameter path, e.g.
-    "['planes']/['xy']/[1]"."""
-    return "/".join(f"[{k!r}]" for k in path)
-
-
 def _refresh_kf_poses_batched(kf_poses: torch.Tensor,
                               mapped_ts: torch.Tensor,
                               video_state: video_lib.VideoState,
                               counter: int,
-                              first_gt: torch.Tensor) -> torch.Tensor:
+                              first_gt: torch.Tensor):
     """Mapper slot poses refreshed from the tracker by timestamp, all slots
-    in one batched device op (slam.py:54-76). Slots whose timestamp has no
-    live tracker row (culled keyframes, empty slots with timestamp -1)
-    keep their pose."""
+    in one batched device op (slam.py:54-76) -> (poses, hit mask). Slots
+    whose timestamp has no live tracker row (culled keyframes, empty slots
+    with timestamp -1) keep their pose and miss."""
     T = video_state.poses.shape[0]
     all_poses = video_lib.get_poses_c2w(video_state, T, first_gt=first_gt)
     live = torch.arange(T, device=kf_poses.device) < counter
     m = ((mapped_ts[:, None] == video_state.timestamps[None, :])
          & live[None, :] & (mapped_ts >= 0.0)[:, None])
+    hit = m.any(dim=1)
     row = m.to(torch.uint8).argmax(dim=1)
-    return torch.where(m.any(dim=1)[:, None, None], all_poses[row], kf_poses)
+    return torch.where(hit[:, None, None], all_poses[row], kf_poses), hit
 
 
 class MNESLAM:
     def __init__(self, config: Dict, dataset, rank: int = 0,
                  device="cuda", droid_params: Optional[Dict] = None,
-                 update_fn=None, agg_fn=None):
+                 update_fn=None, agg_fn=None, world_size: int = 1):
         self.device = resolve_device(device)
         self.config = config
         self.dataset = dataset
         self.rank = rank
+        self.world_size = world_size
         self.mode = config.get("mode", "slam")
         if self.mode not in ("mapping", "slam"):
             raise ValueError(f"mode {self.mode!r}: mneslam_tpu_torch runs "
@@ -147,6 +149,15 @@ class MNESLAM:
                                                          10))
         self._frame_cursor = 0
         self._last_global_ba = 0
+        self.collab = None  # set by agents.runner.MultiAgentRunner
+        # loop_closure.map_aligned: (timestamps, c2w) of the closure-
+        # deformed trajectory, which overrides the matching map slots
+        self._aligned_kf_override = None
+        # raw (tracker-world) keyframe poses, kept while an override is
+        # active: the closure math must see raw poses, since its stored
+        # transform was measured against them (feeding it aligned poses
+        # re-applies the correction every keyframe)
+        self._raw_kf_poses = None
 
     def _droid_params(self, droid_params: Optional[Dict]) -> Dict:
         """The given params, else `tracking.pretrained` when that file
@@ -155,10 +166,10 @@ class MNESLAM:
             path = self.config["tracking"].get("pretrained")
             if path and os.path.exists(str(path)):
                 if str(path).endswith(".npz"):
-                    raise NotImplementedError(
-                        "a .npz tracking.pretrained (utils/params_io) is not "
-                        "ported yet; give the droid.pth state dict")
-                droid_params = droid_net.load_droid_weights(str(path))
+                    from .utils.params_io import load_pytree_npz
+                    droid_params = load_pytree_npz(str(path))
+                else:
+                    droid_params = droid_net.load_droid_weights(str(path))
             else:
                 droid_params = droid_net.init_droid_net(
                     make_generator(self.device, 7), device=self.device)
@@ -213,9 +224,17 @@ class MNESLAM:
         """Log the keyframe. The new entry keeps its device scalars; the
         entries before it are read back and written to metrics.jsonl now,
         while this keyframe's steps may still run on the device. Then the
-        render panel every `mapping.vis` keyframes and the mesh snapshot
-        every `mapping.mapping_save_stride` keyframes (0 or absent: off)."""
+        render panel every `mapping.vis` keyframes, the mesh snapshot
+        every `mapping.mapping_save_stride` keyframes (0 or absent: off),
+        and the collaboration hook (publish, loop detection, closure)."""
         self.mapped_timestamps.append(float(frame_idx))
+        if self._aligned_kf_override is not None and \
+                self._raw_kf_poses is not None:
+            # pose_c2w is raw: it comes from the tracker or the dataset,
+            # never from the overridden map slots
+            self._raw_kf_poses = np.concatenate(
+                [self._raw_kf_poses,
+                 pose_c2w.detach().cpu().numpy()[None]])
         self.metrics_log.append(dict(metrics))
         self._flush_metrics(upto=len(self.metrics_log) - 1)
 
@@ -232,6 +251,13 @@ class MNESLAM:
                                            f"mesh_track_{frame_idx}.ply"))
             except Exception as e:  # a snapshot must not end the run
                 print(f"[agent {self.rank}] mesh snapshot failed: {e}")
+        if self.collab is not None:
+            n = min(len(self.mapped_timestamps),
+                    self.map_state.kf_poses.shape[0])
+            self.collab.on_keyframe_mapped(
+                frame_idx, frame["rgb"], pose_c2w.detach().cpu().numpy(),
+                self.kf_poses_raw(n),
+                np.asarray(self.mapped_timestamps[:n], float))
 
     def render_frame(self, frame: Dict, pose_c2w: torch.Tensor):
         """Render a whole frame at its pose with depth-guided samples ->
@@ -342,8 +368,15 @@ class MNESLAM:
         """Mapper keyframe poses <- the tracker's current poses, matched by
         timestamp, in one batched device op with no host readback (the
         reference reads poses fresh per mapping iteration,
-        mp_slam/mapper.py:193-198)."""
+        mp_slam/mapper.py:193-198); then the `loop_closure.map_aligned`
+        override. While an override is active the raw poses are read back
+        once per refresh and kept: a slot the refresh hit holds a fresh
+        tracker pose, a slot it missed keeps its previous raw pose, so an
+        override never leaks into the raw history."""
         if not self.mapped_timestamps:
+            return
+        if self.tracker is None:
+            self._apply_aligned_override()
             return
         with self.timers.stage("pose_refresh"):
             num_kf = self.map_state.kf_poses.shape[0]
@@ -351,10 +384,64 @@ class MNESLAM:
             k = min(len(self.mapped_timestamps), num_kf)
             mts[:k] = self.mapped_timestamps[:k]
             st = self.tracker.state
-            self.map_state.kf_poses = _refresh_kf_poses_batched(
+            self.map_state.kf_poses, hit = _refresh_kf_poses_batched(
                 self.map_state.kf_poses,
                 torch.as_tensor(mts, device=self.device), st,
                 self.tracker.counter, st.poses_gt[0])
+            if self._aligned_kf_override is not None:
+                raw = self.map_state.kf_poses[:k].cpu().numpy().copy()
+                hit_np = hit[:k].cpu().numpy()
+                if self._raw_kf_poses is not None:
+                    m = min(k, len(self._raw_kf_poses))
+                    miss = ~hit_np[:m]
+                    raw[:m][miss] = self._raw_kf_poses[:m][miss]
+                self._raw_kf_poses = raw
+        self._apply_aligned_override()
+
+    def set_aligned_kf_poses(self, timestamps, poses_c2w):
+        """`loop_closure.map_aligned`: map against the collaboration
+        layer's closure-deformed trajectory from now on. Stored and applied
+        at once, and again after every tracker pose refresh, so aligned
+        poses win for the matching keyframe slots; the raw poses stay
+        retrievable through `kf_poses_raw`."""
+        if self._aligned_kf_override is None and self._raw_kf_poses is None:
+            # seed the raw history even before a refresh (mapping-only
+            # mode has none); _post_map_bookkeeping grows it from here
+            n = min(len(self.mapped_timestamps),
+                    self.map_state.kf_poses.shape[0])
+            self._raw_kf_poses = \
+                self.map_state.kf_poses[:n].cpu().numpy().copy()
+        self._aligned_kf_override = (
+            np.asarray(timestamps, np.float64).ravel(),
+            np.asarray(poses_c2w, np.float32))
+        self._apply_aligned_override()
+
+    def kf_poses_raw(self, n: int) -> np.ndarray:
+        """Tracker-world poses of the mapped keyframe slots [0, n): the map
+        slots themselves unless `loop_closure.map_aligned` overrode them,
+        else the kept raw history."""
+        out = self.map_state.kf_poses[:n].cpu().numpy().copy()
+        if self._aligned_kf_override is not None and \
+                self._raw_kf_poses is not None:
+            m = min(len(out), len(self._raw_kf_poses))
+            out[:m] = self._raw_kf_poses[:m]
+        return out
+
+    def _apply_aligned_override(self):
+        if self._aligned_kf_override is None or not self.mapped_timestamps:
+            return
+        ats, aposes = self._aligned_kf_override
+        pos = {float(t): i for i, t in enumerate(ats)}
+        num_kf = self.map_state.kf_poses.shape[0]
+        slots, rows = [], []
+        for slot, t in enumerate(self.mapped_timestamps[:num_kf]):
+            j = pos.get(float(t))
+            if j is not None:
+                slots.append(slot)
+                rows.append(j)
+        if slots:
+            self.map_state.kf_poses[slots] = torch.as_tensor(
+                aposes[rows], device=self.device)
 
     def track_step(self) -> bool:
         """Track one motion-filter batch; False once the dataset is

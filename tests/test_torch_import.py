@@ -32,7 +32,10 @@ def test_every_module_imports_without_jax():
               "tools.measure", "tools.prof_corr", "tools.prof_scatter",
               "tools.scatter_ablation", "ops.mc", "mapping.mesher",
               "mapping.cull", "eval.recon", "utils.vis",
-              "tools.eval_recon", "tools.prof_determinism"):
+              "tools.eval_recon", "tools.prof_determinism",
+              "ops.rotations", "utils.params_io", "agents.comms",
+              "agents.netvlad", "agents.loop_detector", "agents.fusion",
+              "agents.runner", "cli"):
         assert f"mneslam_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"

@@ -198,6 +198,16 @@ def test_room0_matches_the_yaml_files(monkeypatch):
             ref = ref[k]
         assert v == ref, keys
     assert pconfig.load_config(path) == jconfig.load_config(path)
+    # the multi-agent slice's keys (replica.yaml:143-160, room0.yaml:8-10)
+    for keys in (("loop_detection", "sim_threshold"),
+                 ("loop_detection", "loop_launch_th"),
+                 ("loop_closure", "pose_decay_sigma"),
+                 ("distillation", "use_bound_overlap"),
+                 ("loop_bound", "bound_1"), ("model_name",),
+                 ("checkpoints", "VGG16-NetVLAD-Pitts30K"),
+                 ("mapping", "loop_iters"), ("mapping", "distill_iters"),
+                 ("mapping", "lr_rot"), ("mapping", "lr_trans")):
+        assert keys in dict(_leaves(ROOM0)), keys
     merged = pconfig.make_config(ROOM0)
     for keys, v in _leaves(ROOM0):
         got = merged
