@@ -107,7 +107,27 @@ Phases, each of which must pass (any failure exits non-zero):
      (chiprun_out/chip_smoke/distill_profile.txt); 12d. `python -m
      mneslam_tpu_torch.cli --num_agents 2 --spawn` on phase 3's tiny
      config: both children exit 0 and write the on-disk exchange. The
-     phase's time is printed beside its budget of 240 s.
+     phase's time is printed beside its budget of 240 s;
+ 13. the shipped single-device configs on files: 13a. whether cv2 and PIL
+     import, and the port's PNG codec (`data/image_io.py`) writing and
+     reading 8-bit RGB and 16-bit depth at 480 x 640 with each filter type
+     bit for bit (and against cv2 where it is there); 13b. the box room
+     rendered at configs/TUM/fr1_desk.yaml's intrinsics and written as a
+     TUM folder (24 frames and one colour frame without depth), the port's
+     `validate_dataset --kind tum --no-smoke` on it (exit 0), then
+     `cli.main --config <a yaml that inherits fr1_desk.yaml> --mode slam`
+     on the card with the oracle update: the association's count, APE
+     (Sim(3)) under 5 cm, kernel 2's launches equal to the lookups, both
+     meshes (over the box's bound); ms per tracked frame and mapped
+     keyframe; kernel 2 at its 30 x 40 grid (ragged tiles, levels 15 x 20,
+     7 x 10, 3 x 5) against its plain version, timed beside its bound;
+     13c. the mapping-only path with configs/Replica/room0_fast.yaml's
+     keys (bf16 render) on phase 7's box room: last PSNR above 16 dB,
+     every kernel-1 launch on bf16 values (6 per iteration), ms per
+     iteration and keyframe beside phase 7's fp32 ones, kernel 1's bf16
+     time at its shapes, and the tiny config's 3 mapper steps in bf16, GPU
+     vs CPU (loss rtol 1e-4, parameters 5e-4). The phase's time is printed
+     beside its budget of 180 s.
 Prints the kernels' JSON line, then as the last line
 {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc; imports
 nothing of JAX.
@@ -141,6 +161,8 @@ SCATTERS_PER_ITER = 6
 # coarse texel; a dropped or doubled update still exceeds this by far.)
 SCATTER_RTOL = 5e-5
 SCATTER_ATOL = 1e-6
+# one bf16 ulp relative to the value (7 explicit mantissa bits)
+BF16_ULP = 2.0 ** -7
 PSNR_FLOOR = 16.0
 
 # corr_window: fp32 dots of C = 128 products, summed in another order by
@@ -240,10 +262,15 @@ def reset_launches():
     torch.cuda.synchronize()
     for w in _wrappers().values():
         w.launches = 0
+    _wrappers()["scatter_add_rows"].launches_bf16 = 0
 
 
 def read_launches() -> dict:
-    return {name: w.launches for name, w in _wrappers().items()}
+    """Launches by wrapper; `scatter_add_rows_bf16`: kernel 1's launches on
+    bf16 values, counted within `scatter_add_rows` too."""
+    ws = _wrappers()
+    return {**{name: w.launches for name, w in ws.items()},
+            "scatter_add_rows_bf16": ws["scatter_add_rows"].launches_bf16}
 
 
 def lookups(slam) -> int:
@@ -274,9 +301,10 @@ def tiny_config(out_dir):
     })
 
 
-def small_parity():
-    """Three mapper steps on identical inputs, GPU vs CPU; -> max relative
-    loss difference and max parameter difference."""
+def small_parity(render_dtype="float32"):
+    """Three mapper steps on identical inputs, GPU vs CPU, with
+    `training.render_dtype`; -> (losses, max relative loss difference, max
+    parameter difference)."""
     import numpy as np
     import torch
 
@@ -286,6 +314,7 @@ def small_parity():
                                                  params_to_numpy)
 
     cfg = tiny_config(os.path.join(RUN_OUT, "parity"))
+    cfg["training"]["render_dtype"] = render_dtype
     rng = np.random.default_rng(0)
     runs = {}
     for dev in ("cpu", "cuda"):
@@ -685,18 +714,23 @@ def path_scatter_inputs(slam, generator):
 
 def check_scatter(idx, vals, n_rows):
     """Kernel vs plain version on the same inputs; -> (max abs error, max
-    error / tolerance). Raises SystemExit past the tolerance."""
+    error / tolerance). Raises SystemExit past the tolerance. For bf16
+    values both sides round an fp32 sum to bf16, so one bf16 ulp (2^-7 of
+    the plain result) is added to the tolerance."""
     import torch
 
     from mneslam_tpu_torch.kernels.scatter_add_rows import (
         scatter_add_rows, scatter_add_rows_plain)
 
-    got = scatter_add_rows(idx, vals, n_rows)
-    ref = scatter_add_rows_plain(idx, vals, n_rows)
-    mag = scatter_add_rows_plain(idx, vals.abs(), n_rows)
+    got = scatter_add_rows(idx, vals, n_rows).float()
+    ref = scatter_add_rows_plain(idx, vals, n_rows).float()
+    mag = scatter_add_rows_plain(idx, vals.float().abs(), n_rows)
     torch.cuda.synchronize()
     err = (got - ref).abs()
-    ratio = float((err / (SCATTER_RTOL * mag + SCATTER_ATOL)).max())
+    tol = SCATTER_RTOL * mag + SCATTER_ATOL
+    if vals.dtype == torch.bfloat16:
+        tol = tol + BF16_ULP * ref.abs()
+    ratio = float((err / tol).max())
     if not ratio <= 1.0:
         raise SystemExit(f"scatter_add_rows disagrees with its plain version "
                          f"(n_rows {n_rows}): error / tolerance {ratio}")
@@ -733,32 +767,11 @@ def tiny_slam_config(out_dir, exp_name="oracle"):
 def oracle_fns(ds, intr8):
     """update_fn / agg_fn of a tracker whose update gets ground-truth
     reprojection targets in place of the DROID update (tests/
-    test_slam_full.py's oracle); intr8: the intrinsics at 1/8 of the
-    tracking resolution."""
-    import numpy as np
-    import torch
+    test_slam_full.py's oracle, as `tools/validate_dataset` builds it);
+    intr8: the intrinsics at 1/8 of the tracking resolution."""
+    from mneslam_tpu_torch.tools.validate_dataset import oracle_fns as fns
 
-    from mneslam_tpu_torch.ops import lie, projective
-
-    flip = np.asarray(FLIP, np.float32)
-    G0 = ds[0]["c2w"]
-    gt = torch.stack([lie.from_matrix(torch.tensor(np.linalg.inv(
-        flip @ np.linalg.inv(G0) @ ds[i]["c2w"] @ flip).astype(np.float32)))
-        for i in range(len(ds))]).cuda()
-    intr8 = torch.as_tensor(intr8, dtype=torch.float32, device="cuda")
-
-    def update_fn(params, state, ii, jj, net, corr, motion, coords1):
-        idx = state.timestamps.long().clamp(0, len(gt) - 1)
-        tgt, valid = projective.projective_transform(
-            gt[idx], state.disps_sens, intr8, ii, jj)
-        return net, tgt - coords1, valid.expand(tgt.shape)
-
-    def agg_fn(params, net, ii, mask, n):
-        h, w = net.shape[2:]
-        return (1e-4 * torch.ones((net.shape[0], h, w), device="cuda"),
-                torch.zeros((net.shape[0], 576, h, w), device="cuda"))
-
-    return update_fn, agg_fn
+    return fns(ds, intr8, "cuda")
 
 
 def oracle_slam(cfg, ds):
@@ -1864,6 +1877,408 @@ def collaboration(slam, card):
     return cp, ma_launches
 
 
+# ---------------------------------------------------------------------------
+# 13. the shipped single-device configs on files
+# ---------------------------------------------------------------------------
+
+TUM_CONFIG = os.path.join("configs", "TUM", "fr1_desk.yaml")
+FAST_CONFIG = os.path.join("configs", "Replica", "room0_fast.yaml")
+# 13b: TUM frames of the box room, past the tracker's warmup of 12, so the
+# frontend updates; under its window of 25 (no backend)
+TUM_FRAMES = 24
+# 13c: frames of the room0_fast mapping-only run, as phase 7
+FAST_FRAMES = 11
+# 13c's GPU-vs-CPU bf16 parity (3 mapper steps of the tiny config): the
+# loss within rtol 1e-4 and the parameters within 5e-4 (the CPU tests'
+# bf16 bound, tests/test_torch_render_bf16.py: cuBLAS and the CPU round
+# their bf16 products' sums at other points, and Adam's first steps turn a
+# small gradient change into a step change of up to the learning rate)
+BF16_LOSS_RTOL = 1e-4
+BF16_PARAM_ATOL = 5e-4
+# phase 13's printed budget (not a failure when over)
+FILES_BUDGET_S = 180.0
+
+
+def image_io_check() -> dict:
+    """13a: which image packages the machine has, and the port's PNG codec
+    on it: 8-bit RGB and 16-bit depth at 480 x 640 written with each
+    filter type and read back bit for bit; where cv2 is there, its reader
+    against the port's on those files and the port's reader on a file cv2
+    wrote. Raises SystemExit on a mismatch."""
+    import importlib
+
+    import numpy as np
+
+    from mneslam_tpu_torch.data import image_io
+
+    have = {}
+    for name in ("cv2", "PIL"):
+        try:
+            mod = importlib.import_module(name)
+            have[name] = getattr(mod, "__version__", "present")
+        except ImportError:
+            have[name] = None
+    out = os.path.join(RUN_OUT, "image_io")
+    os.makedirs(out, exist_ok=True)
+    rng = np.random.default_rng(13)
+    yy, xx = np.mgrid[:480, :640]
+    images = {
+        "rgb8": np.stack([(xx + yy) % 256, (3 * xx) % 256, (xx ^ yy) % 256],
+                         -1).astype(np.uint8),
+        "depth16": (1000 + 9 * xx + 5 * yy).astype(np.uint16)}
+    images["rgb8"][::7] = rng.integers(0, 256, images["rgb8"][::7].shape)
+    images["depth16"][::11] = rng.integers(0, 65536,
+                                           images["depth16"][::11].shape)
+    res = {"packages": have, "files": 0, "cv2_files": 0, "read_ms": {}}
+    bad = []
+    for name, img in images.items():
+        for ft in range(5):
+            path = os.path.join(out, f"{name}_{ft}.png")
+            image_io.write_png(path, img, filter_type=ft)
+            t0 = time.perf_counter()
+            back = image_io.read_png(path)
+            res["read_ms"][f"{name}_{ft}"] = 1e3 * (time.perf_counter() - t0)
+            res["files"] += 1
+            if back.dtype != img.dtype or not np.array_equal(back, img):
+                bad.append(path)
+            if have["cv2"]:
+                import cv2
+
+                if not np.array_equal(cv2.imread(path, cv2.IMREAD_UNCHANGED),
+                                      back):
+                    bad.append(f"cv2:{path}")
+        if have["cv2"]:
+            import cv2
+
+            path = os.path.join(out, f"{name}_cv2.png")
+            cv2.imwrite(path, img)
+            res["cv2_files"] += 1
+            if not np.array_equal(image_io.read_png(path),
+                                  cv2.imread(path, cv2.IMREAD_UNCHANGED)):
+                bad.append(path)
+    if bad:
+        raise SystemExit(f"image I/O: the PNG codec disagrees on {bad}")
+    return res
+
+
+def corr_at(slam) -> dict:
+    """Kernel 2 (box design) at a SLAM path's frontend inputs (its graph's
+    edges topped up to 75 real in the frontend's 91 slots, reprojected
+    centres), against its plain version, timed in turns with its row
+    design, beside its bound and its box-path share; the keys of a case of
+    `corr_kernels`' "corr_window"."""
+    from mneslam_tpu_torch.kernels.corr_window import (
+        box_path_share, corr_window_multilevel, corr_window_multilevel_plain,
+        corr_window_multilevel_rows)
+    from mneslam_tpu_torch.tools.measure import corr_bound_ms, cuda_ms
+
+    f1, levels, ii, jj, xs, w2ps, mc = corr_path_inputs(slam)
+    W = slam.tracker.state.fmaps.shape[3]
+    args = (f1, levels, ii, jj, xs, w2ps)
+    ref = corr_window_multilevel_plain(*args, mask=mc)
+    mag = corr_window_multilevel_plain(
+        f1.abs(), [lv.abs() for lv in levels], ii, jj, xs, w2ps, mask=mc)
+    err, ratio = check_corr(corr_window_multilevel(*args, W, mask=mc), ref,
+                            mag, mc)
+    err_r, ratio_r = check_corr(corr_window_multilevel_rows(*args, mask=mc),
+                                ref, mag, mc, what="corr_window_rows vs its "
+                                "plain version")
+    del ref, mag
+    ms, rows_ms = ab_ms(lambda: corr_window_multilevel(*args, W, mask=mc),
+                        lambda: corr_window_multilevel_rows(*args, mask=mc))
+    plain = cuda_ms(lambda: corr_window_multilevel_plain(*args, mask=mc),
+                    reps=5, warmup=1)
+    bound, by, nbytes, flops = corr_bound_ms(*args[:5], mc)
+    H = xs.shape[1] // W
+    return {"ms": ms, "rows_ms": rows_ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by,
+            "box_share": box_path_share(xs, [lv.shape[1] for lv in levels],
+                                        w2ps, W, mc),
+            "max_abs_err": max(err, err_r), "err_ratio": ratio,
+            "rows_err_ratio": ratio_r, "edges": xs.shape[0],
+            "real": int(mc.sum()), "grid": [H, W],
+            "level_rows": [lv.shape[1] for lv in levels]}
+
+
+def tum_files_path(card) -> dict:
+    """13b: the TUM path on files at configs/TUM/fr1_desk.yaml's widths.
+    Before the clock: the box room rendered at its intrinsics and written
+    as a TUM folder (`write_tum_sequence`, one colour frame without depth),
+    and a yaml in OUT (beside the profile tables) that inherits it and sets
+    data.datadir. Then the port's `validate_dataset --kind tum --no-smoke`
+    (exit 0), and `cli.main --config <yaml> --mode slam` on the card with
+    the oracle update (`validate_dataset.OracleMNESLAM` as slam.MNESLAM),
+    the counts set to 0 just before and read just after. Raises SystemExit
+    on a failed check."""
+    import numpy as np
+    import torch
+    import yaml
+
+    import mneslam_tpu_torch.slam as slam_mod
+    from mneslam_tpu_torch import cli
+    from mneslam_tpu_torch.config import (default_config, deep_update,
+                                          load_config)
+    from mneslam_tpu_torch.data.synthetic import (SyntheticBoxDataset,
+                                                  write_tum_sequence)
+    from mneslam_tpu_torch.tools import validate_dataset
+
+    base = deep_update(default_config(), load_config(
+        os.path.join(ROOT, TUM_CONFIG)))
+    folder = os.path.join(RUN_OUT, "tum_files", "rgbd_dataset")
+    if os.path.isdir(folder):
+        import shutil
+
+        shutil.rmtree(folder)
+    t0 = time.perf_counter()
+    written = write_tum_sequence(
+        SyntheticBoxDataset(base, num_frames=TUM_FRAMES, half=BOX_HALF),
+        folder, png_depth_scale=base["cam"]["png_depth_scale"])
+    write_s = time.perf_counter() - t0
+    path = os.path.join(OUT, "tum_fr1_desk_files.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump({
+            "inherit_from": os.path.join(ROOT, TUM_CONFIG),
+            "data": {"datadir": folder, "output": RUN_OUT,
+                     "exp_name": "tum_files"},
+            # random DROID weights: admit every frame (as phase 8)
+            "tracking": {"motion_filter": {"thresh": -1.0},
+                         "frontend": {"keyframe_thresh": -1.0}},
+            # the terminate meshes over the box's bound (as phases 9, 12c)
+            "mapping": {"marching_cubes_bound":
+                        [[-BOX_HALF - 0.05, BOX_HALF + 0.05]] * 3}}, f)
+
+    t0 = time.perf_counter()
+    try:
+        validate_dataset.main([folder, "--kind", "tum", "--config", path,
+                               "--no-smoke"])
+        vcode = 0
+    except SystemExit as e:
+        vcode = int(e.code or 0)
+    validate_s = time.perf_counter() - t0
+    if vcode != 0:
+        raise SystemExit(f"validate_dataset on the TUM folder: exit {vcode}")
+
+    made, batches = [], []
+
+    class Recorded(validate_dataset.OracleMNESLAM):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+            _timed(self.tracker, "run_batch", batches,
+                   lambda: (self.tracker.counter,))
+
+    real = slam_mod.MNESLAM
+    slam_mod.MNESLAM = Recorded
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        res = cli.main(["--config", path, "--mode", "slam"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        slam_mod.MNESLAM = real
+    slam = made[0]
+    del slam.tracker.run_batch
+    n_map = len(slam.mapped_timestamps)
+    n_frames = sum(after[0] - before[0] for _, before, after in batches)
+    stages = slam.timers.summary()
+    mesh_dir = os.path.join(slam.out_dir, "mesh")
+    out = {
+        "card": card, "frames_written": written["frames"],
+        "rgb_lines": written["rgb_lines"], "gt_lines": written["gt_lines"],
+        "associated": len(slam.dataset), "write_s": write_s,
+        "validate_s": validate_s, "seconds": seconds,
+        "keyframes": slam.tracker.counter, "mapped": n_map,
+        "lookups": lookups(slam), "launches": launches,
+        "ape_sim3_m": res["ate"]["rmse"],
+        "tracked_frame_ms": 1e3 * sum(s for s, _, _ in batches)
+        / max(n_frames, 1),
+        "mapped_keyframe_ms": 1e3 * stages["map_keyframe"]["total_s"]
+        / max(n_map, 1),
+        "mesh_s": stages["mesh"]["total_s"],
+        "mesh_verts": res.get("mesh_verts"),
+        "mesh_verts_culled": res.get("mesh_verts_culled"),
+        "meshes": all(os.path.exists(os.path.join(mesh_dir, n)) for n in
+                      ("final_mesh.ply", "final_mesh_culled.ply")),
+        "est_poses_finite": bool(np.isfinite(np.load(os.path.join(
+            slam.out_dir, "est_poses.npy"))).all())}
+    bad = [what for what, ok in (
+        ("association", out["associated"] == TUM_FRAMES
+         and out["rgb_lines"] == TUM_FRAMES + 1),
+        ("APE", out["ape_sim3_m"] < ATE_TOL_M),
+        ("kernel 2 launches", launches["corr_window"] == out["lookups"] > 0
+         and not launches["corr_window_mma"]
+         and not launches["corr_window_per_level"]),
+        ("kernel 1 launches", launches["scatter_add_rows"] > 0
+         and not launches["scatter_add_rows_bf16"]),
+        ("meshes", out["meshes"] and (out["mesh_verts"] or 0) > 0),
+        ("poses", out["est_poses_finite"])) if not ok]
+    out["corr"] = corr_at(slam)
+    if bad:
+        raise SystemExit(f"TUM path on files: {bad}: {json.dumps(out)}")
+    return out
+
+
+def bf16_mapping(card, fp32_iter_ms, fp32_kf_ms) -> dict:
+    """13c: the mapping-only path with configs/Replica/room0_fast.yaml's
+    own keys (its iterations, depth samples and render_dtype bfloat16) over
+    ROOM0, on phase 7's box room, the counts set to 0 just before and read
+    just after; its steady-state times beside phase 7's fp32 ones; kernel 1
+    on bf16 values at its shapes; the tiny config's GPU-vs-CPU parity in
+    bf16. Raises SystemExit on a failed check."""
+    import torch
+    import yaml
+
+    from mneslam_tpu_torch.config import deep_update, make_config
+    from mneslam_tpu_torch.configs import ROOM0
+    from mneslam_tpu_torch.data.synthetic import SyntheticBoxDataset
+    from mneslam_tpu_torch.kernels.scatter_add_rows import (
+        scatter_add_rows, scatter_add_rows_plain)
+    from mneslam_tpu_torch.slam import MNESLAM
+    from mneslam_tpu_torch.tools.measure import (FP32_FLOPS,
+                                                 HBM_BYTES_PER_S, cuda_ms)
+
+    with open(os.path.join(ROOT, FAST_CONFIG)) as f:
+        keys = yaml.safe_load(f)
+    keys.pop("inherit_from")
+    cfg = deep_update(make_config(ROOM0), keys)
+    cfg["dataset"] = "synthetic"
+    cfg["mode"] = "mapping"
+    cfg["data"].update(output=RUN_OUT, exp_name="room0_fast_bf16")
+    ds = SyntheticBoxDataset(cfg, num_frames=FAST_FRAMES, half=BOX_HALF)
+    slam = MNESLAM(cfg, ds, rank=0, device="cuda")
+    reset_launches()
+    t0 = time.perf_counter()
+    metrics = slam.run_mapping_only(log_every=1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    mp = cfg["mapping"]
+    iters = int(mp["first_iters"]) + (len(metrics) - 1) * int(mp["iters"])
+    out = {"keys": keys, "keyframes": len(metrics), "iterations": iters,
+           "seconds": seconds, "launches": launches,
+           "psnr_last": float(metrics[-1]["psnr"]),
+           "finite": all(math.isfinite(v) for m in metrics
+                         for v in m.values())}
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    frame, pose = slam._frame_for_mapping(int(slam.mapped_timestamps[-1]))
+    slam.mapper.optimize(slam.map_state, frame, pose, gen, iters=5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slam.mapper.optimize(slam.map_state, frame, pose, gen,
+                         iters=int(mp["iters"]))
+    torch.cuda.synchronize()
+    out["keyframe_ms"] = 1e3 * (time.perf_counter() - t0)
+    out["iter_ms"] = out["keyframe_ms"] / int(mp["iters"])
+    out["fp32_iter_ms"], out["fp32_keyframe_ms"] = fp32_iter_ms, fp32_kf_ms
+
+    # kernel 1 on bf16 values at this path's shapes: one iteration's six
+    # calls, the values cast to bf16
+    calls = [(name, idx, vals.to(torch.bfloat16), n_rows)
+             for name, idx, vals, n_rows in path_scatter_inputs(slam, gen)]
+    k = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+         "bytes": 0, "max_abs_err": 0.0, "err_ratio": 0.0, "updates": []}
+    for name, idx, vals, n_rows in calls:
+        err, ratio = check_scatter(idx, vals, n_rows)
+        nu, width = vals.shape
+        k["max_abs_err"] = max(k["max_abs_err"], err)
+        k["err_ratio"] = max(k["err_ratio"], ratio)
+        k["ms"] += cuda_ms(lambda: scatter_add_rows(idx, vals, n_rows))
+        k["plain_ms"] += cuda_ms(
+            lambda: scatter_add_rows_plain(idx, vals, n_rows))
+        # one call: index_add_ into a bf16 table (it sums in bf16)
+        k["library_ms"] += cuda_ms(lambda: torch.zeros(
+            (n_rows, width), dtype=torch.bfloat16,
+            device="cuda").index_add_(0, idx, vals))
+        # bytes: the bf16 values and the indices read once, the bf16
+        # table written once; operations: one fp32 add per value
+        nbytes = nu * width * 2 + nu * idx.element_size() \
+            + n_rows * width * 2
+        k["bytes"] += nbytes
+        k["bound_ms"] += 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                   nu * width / FP32_FLOPS)
+        k["updates"].append([name, nu, n_rows])
+    out["kernel1_bf16"] = k
+
+    # the tiny config in bf16, GPU vs CPU
+    losses, rel, pdiff = small_parity("bfloat16")
+    out["parity"] = {"losses": losses, "max_rel_loss_diff": rel,
+                     "max_param_diff": pdiff}
+    n = SCATTERS_PER_ITER * iters
+    bad = [what for what, ok in (
+        ("kernel 1 bf16 launches", launches["scatter_add_rows_bf16"] == n
+         and launches["scatter_add_rows"] == n),
+        ("PSNR", out["psnr_last"] > PSNR_FLOOR),
+        ("finite", out["finite"]),
+        ("bf16 parity", rel < BF16_LOSS_RTOL and pdiff < BF16_PARAM_ATOL))
+        if not ok]
+    if bad:
+        raise SystemExit(f"bf16 mapping path: {bad}: {json.dumps(out)}")
+    return out
+
+
+def files_phase(card, fp32_iter_ms, fp32_kf_ms) -> dict:
+    """Phase 13 (13a-13c) -> their results. Raises SystemExit on a failed
+    check."""
+    t13 = time.perf_counter()
+    io_res = image_io_check()
+    log(f"image I/O on this machine: {json.dumps(io_res)}")
+
+    tum = tum_files_path(card)
+    c = tum["corr"]
+    log(f"TUM on files ({TUM_CONFIG} widths: 480 x 640, tracking 240 x 320, "
+        f"buffer 300; {TUM_FRAMES} box-room frames written in "
+        f"{tum['write_s']:.2f} s, the association keeps {tum['associated']} "
+        f"of {tum['rgb_lines']} colour frames; validate_dataset exit 0 in "
+        f"{tum['validate_s']:.2f} s): cli.main --mode slam with the oracle "
+        f"update in {tum['seconds']:.2f} s, {tum['keyframes']} keyframes, "
+        f"{tum['mapped']} mapped; APE(sim3) rmse {tum['ape_sim3_m']:.3e} m "
+        f"(limit {ATE_TOL_M} m); {tum['lookups']} lookups, launches "
+        f"{json.dumps(tum['launches'])}; {tum['tracked_frame_ms']:.1f} ms "
+        f"per tracked frame, {tum['mapped_keyframe_ms']:.1f} ms per mapped "
+        f"keyframe (mean, the first with 500 iterations); terminate mesh "
+        f"step {tum['mesh_s']} s, mesh_verts {tum['mesh_verts']}, culled "
+        f"{tum['mesh_verts_culled']}, on {card}")
+    log(f"corr tum_frontend: grid {c['grid']} (levels {c['level_rows']} "
+        f"rows), E {c['edges']} ({c['real']} real), box path share by level "
+        f"{[round(v, 4) for v in c['box_share']]}; kernel 2 box "
+        f"{c['ms']:.4f} ms, row design {c['rows_ms']:.4f} ms, plain "
+        f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms by "
+        f"{c['bound_by']}, err / tolerance {c['err_ratio']:.3f} (rows "
+        f"{c['rows_err_ratio']:.3f})")
+
+    fast = bf16_mapping(card, fp32_iter_ms, fp32_kf_ms)
+    k = fast["kernel1_bf16"]
+    log(f"bf16 mapping-only ({FAST_CONFIG} keys {json.dumps(fast['keys'])} "
+        f"over ROOM0, {FAST_FRAMES} box-room frames): {fast['keyframes']} "
+        f"keyframes, {fast['iterations']} iterations in "
+        f"{fast['seconds']:.2f} s; last PSNR {fast['psnr_last']:.2f} dB "
+        f"(floor {PSNR_FLOOR}); launches {json.dumps(fast['launches'])}; "
+        f"{fast['iter_ms']:.3f} ms per iteration, {fast['keyframe_ms']:.1f} "
+        f"ms per keyframe ({fast['keys']['mapping']['iters']} iterations) "
+        f"against fp32 "
+        f"{fp32_iter_ms:.3f} / {fp32_kf_ms:.1f} ms (phase 7, 50 "
+        f"iterations), on {card}")
+    log(f"scatter_add_rows bf16, one bf16 iteration's 6 calls: kernel "
+        f"{k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, index_add_ (bf16 "
+        f"table) {k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
+        f"({k['bytes']} bytes at 3.35 TB/s), max abs err "
+        f"{k['max_abs_err']:.3e}, err / tolerance {k['err_ratio']:.3f} "
+        f"(+ one bf16 ulp); updates {k['updates']}")
+    p = fast["parity"]
+    log(f"bf16 parity (tiny config, 3 mapper steps, GPU vs CPU): losses "
+        f"{p['losses']}; max rel loss diff {p['max_rel_loss_diff']:.3e} "
+        f"(limit {BF16_LOSS_RTOL:g}), max param diff "
+        f"{p['max_param_diff']:.3e} (limit {BF16_PARAM_ATOL:g})")
+    t13 = time.perf_counter() - t13
+    log(f"phase 13 {t13:.1f} s of its budget of {FILES_BUDGET_S:.0f} s"
+        + (": OVER BUDGET, cut frames" if t13 > FILES_BUDGET_S else ""))
+    return {"image_io": io_res, "tum": tum, "fast": fast, "seconds": t13}
+
+
 def main():
     import numpy as np
     import torch
@@ -2333,6 +2748,12 @@ def main():
     # 12. multi-agent collaboration
     cp, ma_launches = collaboration(slam, card)
 
+    # 13. the shipped configs on files: image I/O, the TUM path, the bf16
+    #     mapping path
+    files = files_phase(card, iter_ms, kf_ms)
+    tum, fast = files["tum"], files["fast"]
+    corr["corr_window"]["tum_frontend"] = tum["corr"]
+
     kernels = [{
         "name": "scatter_add_rows",
         "route": "cuda",
@@ -2345,7 +2766,19 @@ def main():
                              "probes": probe_launches["scatter_add_rows"],
                              "multiagent": ma_launches["scatter_add_rows"],
                              "collab_parity_distill":
-                                 cp["distill_launches"]},
+                                 cp["distill_launches"],
+                             "tum_files": tum["launches"]["scatter_add_rows"],
+                             "mapping_bf16":
+                                 fast["launches"]["scatter_add_rows_bf16"]},
+        "bf16": {**fast["kernel1_bf16"],
+                 "launches": fast["launches"]["scatter_add_rows_bf16"],
+                 "fp32_launches": fast["launches"]["scatter_add_rows"]
+                 - fast["launches"]["scatter_add_rows_bf16"],
+                 "bound_by": "bytes",
+                 "timed_as": "sum of one bf16 mapping iteration's 6 calls",
+                 "library": "index_add_ into a bf16 table (sums in bf16)",
+                 "iter_ms": fast["iter_ms"],
+                 "keyframe_ms": fast["keyframe_ms"]},
         "max_abs_err": max_err,
         "max_err": max_err,
         "tolerance": f"{SCATTER_RTOL:g} x sum|vals| + {SCATTER_ATOL:g}",
@@ -2367,7 +2800,8 @@ def main():
         slaunches["corr_window"],
         {"slam": slaunches["corr_window"],
          "oracle_backend": b_launches["corr_window"], "mapping": 0,
-         "multiagent": ma_launches["corr_window"]},
+         "multiagent": ma_launches["corr_window"],
+         "tum_files": tum["launches"]["corr_window"]},
         CORR_RTOL, **probes["corr_window"],
         probe_launches=probe_launches["corr_window"],
         frontend_update_ms=upd_ms, frontend_update_device_ms=upd_dev_ms,
@@ -2376,7 +2810,9 @@ def main():
         global_ba_ms=global_ms,
         global_ba_step_profile={"wall_ms": gba_ms, "device_ms": gba_dev_ms},
         filler_s=fill_s, filler_stage_s=fill_stage_s,
-        render_frames_s=render_s),
+        render_frames_s=render_s,
+        tum_tracked_frame_ms=tum["tracked_frame_ms"],
+        tum_mapped_keyframe_ms=tum["mapped_keyframe_ms"]),
         corr_entry(
         corr, "corr_window_mma", "corr_window_mma", "corr_window_mma.cu",
         ":114", mlaunches["corr_window_mma"],

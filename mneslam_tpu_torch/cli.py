@@ -91,7 +91,7 @@ def main(argv=None):
     if args.device_mesh:
         raise NotImplementedError(
             "--device_mesh (the mesh agent fleet, parallel/fleet.py) is not "
-            "ported yet: ROADMAP.md Queue 1 item 6")
+            "ported yet: ROADMAP.md Queue 1 item 4")
     if args.spawn and args.num_agents > 1 and args.spawn_rank is None:
         return _spawn_processes(args)
 

@@ -99,3 +99,69 @@ class SyntheticBoxDataset:
             "depth": depth,
             "direction": self.rays_d_cam,
         }
+
+
+# write_tum_sequence's clock: the first frame's stamp (s), the frame
+# spacing and the ground truth's spacing (100 Hz, as TUM's)
+TUM_T0, TUM_DT, TUM_GT_DT = 1305031102.0, 0.05, 0.01
+
+
+def write_tum_sequence(ds: SyntheticBoxDataset, out_dir: str,
+                       png_depth_scale: float = 5000.0) -> Dict:
+    """Write the box room's frames as a TUM RGB-D folder: `rgb/*.png`
+    (8-bit), `depth/*.png` (uint16, metres x png_depth_scale), `rgb.txt`,
+    `depth.txt` (each depth stamp 10-20 ms after its colour frame's, so
+    nearer its own frame than any other at TUM_DT = 50 ms) and
+    `groundtruth.txt` (`t tx ty tz qx qy qz qw`, one pose every TUM_GT_DT
+    s; frame i at TUM_T0 + i TUM_DT, a multiple of TUM_GT_DT, so each
+    frame has a pose at its own stamp). The poses are the stored (OpenCV)
+    ones: the TUM loader's Y / Z column flips give back `ds.c2w`. One
+    colour frame more, 0.2 s after the last, has no depth within 0.08 s
+    and must be dropped by the loader's association. -> {"frames": associated frames,
+    "rgb_lines", "gt_lines"}."""
+    import os
+
+    import torch
+
+    from ..ops import lie
+    from .image_io import write_png
+
+    for sub in ("rgb", "depth"):
+        os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
+    n = len(ds)
+    rgb_lines, depth_lines = [], []
+    for i in range(n):
+        rgb, depth, _ = ds.render_frame(i)
+        t = TUM_T0 + i * TUM_DT
+        name = f"{t:.6f}.png"
+        write_png(os.path.join(out_dir, "rgb", name),
+                  np.round(rgb[..., ::-1] * 255.0).astype(np.uint8))
+        write_png(os.path.join(out_dir, "depth", name),
+                  np.clip(np.round(depth * png_depth_scale), 0,
+                          65535).astype(np.uint16))
+        rgb_lines.append(f"{t:.6f} rgb/{name}")
+        depth_lines.append(f"{t + 0.010 + 0.010 * (i % 3) / 2:.6f} "
+                           f"depth/{name}")
+    # a colour frame without depth: dropped by the association
+    t_extra = TUM_T0 + (n - 1) * TUM_DT + 0.2
+    write_png(os.path.join(out_dir, "rgb", f"{t_extra:.6f}.png"),
+              np.zeros((ds.H, ds.W, 3), np.uint8))
+    rgb_lines.append(f"{t_extra:.6f} rgb/{t_extra:.6f}.png")
+
+    step = int(round(TUM_DT / TUM_GT_DT))
+    flip = np.diag([1.0, -1.0, -1.0, 1.0])
+    gt_lines = []
+    for k in range((n - 1) * step + 1):
+        c2w = ds.c2w(k / step) @ flip
+        q = lie.matrix_to_quat(torch.tensor(c2w[:3, :3])).numpy()
+        gt_lines.append(f"{TUM_T0 + k * TUM_GT_DT:.6f} " + " ".join(
+            f"{v:.9f}" for v in (*c2w[:3, 3], *q)))
+    for name, lines, what in (("rgb.txt", rgb_lines, "color images"),
+                              ("depth.txt", depth_lines, "depth maps"),
+                              ("groundtruth.txt", gt_lines,
+                               "ground truth trajectory")):
+        with open(os.path.join(out_dir, name), "w") as f:
+            f.write(f"# {what}\n# timestamp data\n" + "\n".join(lines)
+                    + "\n")
+    return {"frames": n, "rgb_lines": len(rgb_lines),
+            "gt_lines": len(gt_lines)}

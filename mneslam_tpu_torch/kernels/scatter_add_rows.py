@@ -90,11 +90,13 @@ def scatter_add_rows(idx: torch.Tensor, vals: torch.Tensor,
                      n_rows: int) -> torch.Tensor:
     """`zeros((n_rows, width)).at[idx].add(vals)`: the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors. `scatter_add_rows.launches`
-    counts kernel launches."""
+    counts kernel launches, `scatter_add_rows.launches_bf16` those on
+    bfloat16 values (the bf16 render's backward) among them."""
     _check(idx, vals, n_rows)
     if vals.device.type == "cuda":
         out = _launch_cuda(idx, vals, n_rows)
         scatter_add_rows.launches += 1
+        scatter_add_rows.launches_bf16 += int(vals.dtype == torch.bfloat16)
         return out
     if vals.device.type == "cpu":
         return scatter_add_rows_plain(idx, vals, n_rows)
@@ -122,4 +124,5 @@ def scatter_add_rows_per_warp(idx: torch.Tensor, vals: torch.Tensor,
 
 
 scatter_add_rows.launches = 0
+scatter_add_rows.launches_bf16 = 0
 scatter_add_rows_per_warp.launches = 0

@@ -14,7 +14,13 @@ dict:
      "decoder": {"sdf": [W0, W1], "color": [W0, W1]}}             # [in, out]
 
 Ported configurations: `grid.oneGrid: true`, `training.n_importance: 0`,
-`training.render_dtype: float32` (the Replica settings). Others raise.
+`training.render_dtype: float32` or `bfloat16` (the Replica settings).
+Others raise. Under bfloat16 every query (renders, training and meshing)
+casts the parameters and the points to bf16 at its top, so the plane
+features and the decoders run in bf16 and give fp32 raw outputs; the
+parameters, Adam and the losses stay fp32, and autograd brings fp32
+gradients back to the fp32 leaves. The plane sampler's backward then hands
+kernel 1 bf16 values, which it sums in fp32.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 
 from ..ops import encodings, interp
 from . import decoder as decoder_lib
+from .droid_net import cast_params
 
 
 def _plane_shapes(bound: np.ndarray, resolutions, c_dim: int,
@@ -70,8 +77,13 @@ class SceneRep:
                              "ported")
         if int(tr.get("n_importance", 0)) > 0:
             raise ValueError("training.n_importance > 0 is not ported")
-        if str(tr.get("render_dtype", "float32")) != "float32":
-            raise ValueError("only training.render_dtype: float32 is ported")
+        render_dtype = str(tr.get("render_dtype", "float32"))
+        if render_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"training.render_dtype {render_dtype!r}: "
+                             "float32 or bfloat16 are ported")
+        # mixed precision: plane features and decoders in bf16
+        self.compute_dtype = (torch.bfloat16 if render_dtype == "bfloat16"
+                              else torch.float32)
 
         # bounding_box: raw mapping bound, for the [0, 1] positional
         # encoding; bound: copy grown to a multiple of bound_dividable, for
@@ -157,17 +169,28 @@ class SceneRep:
 
     def query_color_sdf(self, params: Dict, pts: torch.Tensor,
                         tables: Optional[Dict] = None) -> torch.Tensor:
-        """World points [N, 3] -> raw [N, 4] (rgb logits, sdf)."""
+        """World points [N, 3] -> raw [N, 4] (rgb logits, sdf), computed
+        in `compute_dtype` and returned in fp32. `tables` come from
+        `query_tables`, already in `compute_dtype`."""
+        if self.compute_dtype != torch.float32:
+            params = cast_params(params, self.compute_dtype)
+            pts = pts.to(self.compute_dtype)
+        # the bounds are fp32: the plane coordinates and the encoding are
+        # computed in fp32 from the rounded points, as in the JAX package
         embed = self.plane_feature_blocks(params["planes"],
                                           self._normalize(pts), tables)
-        embed_pos = self.pos_encode(self._normalize01(pts))
-        return decoder_lib.decoder_apply(params["decoder"], embed, embed_pos)
+        embed_pos = self.pos_encode(self._normalize01(pts)).to(
+            embed[0].dtype)
+        return decoder_lib.decoder_apply(params["decoder"], embed,
+                                         embed_pos).float()
 
     @torch.no_grad()
     def query_tables(self, params: Dict) -> Dict:
-        """Every plane packed once (`interp.pack_corners`), for the chunked
-        queries of meshing and rendering: {"xy": [per level], ...}."""
-        return {name: [interp.pack_corners(p) for p in params["planes"][name]]
+        """Every plane packed once (`interp.pack_corners`) in
+        `compute_dtype`, for the chunked queries of meshing and rendering:
+        {"xy": [per level], ...}."""
+        return {name: [interp.pack_corners(p.to(self.compute_dtype))
+                       for p in params["planes"][name]]
                 for name in ("xy", "xz", "yz")}
 
     @torch.no_grad()

@@ -80,7 +80,7 @@ def test_cli_spawn_runs_one_process_per_agent(tmp_path):
 
 def test_cli_device_mesh_raises_and_resume_paths(tmp_path, monkeypatch):
     path = _tiny_yaml(tmp_path, "x")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         cli.main(["--config", str(path), "--num_agents", "2",
                   "--device_mesh", "--device", "cpu"])
     # N agents: agent r resumes from PATH.agent<r>

@@ -35,7 +35,9 @@ def test_every_module_imports_without_jax():
               "tools.eval_recon", "tools.prof_determinism",
               "ops.rotations", "utils.params_io", "agents.comms",
               "agents.netvlad", "agents.loop_detector", "agents.fusion",
-              "agents.runner", "cli"):
+              "agents.runner", "cli", "data.image_io", "data.datasets",
+              "tools.validate_dataset", "tools.eval_ate",
+              "tools.import_weights"):
         assert f"mneslam_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"

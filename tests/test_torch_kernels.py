@@ -603,6 +603,58 @@ def test_corr_box_design_matches_plain(cuda, case, C):
         == [counts[0] + 1, counts[1] + 1, counts[2] + 4]
 
 
+@pytest.mark.parametrize("E,n_masked", [(91, 16), (1, 0)])
+def test_corr_window_multilevel_at_tum_widths(cuda, E, n_masked):
+    """Kernel 2 at configs/TUM/fr1_desk.yaml's tracking grid (240 x 320:
+    30 x 40 features, ragged for the 4 x 4 pixel tile; levels 15 x 20,
+    7 x 10 and 3 x 5) on smooth centres (the box path): a frontend update
+    and the motion filter's edge, against the plain version."""
+    N, H, W = 26, 30, 40
+    coords = smooth_coords(E, H, W, seed=3)
+    f1, levels, ii, jj, xs, w2ps, mask = _corr_inputs(
+        N, H, W, E, n_masked, cuda, seed=3, coords=coords)
+    # each level zero-padded by 7 + 8 rows and columns
+    assert [(lv.shape[1] // w - 15, w - 15) for lv, w in zip(levels, w2ps)] \
+        == [(30, 40), (15, 20), (7, 10), (3, 5)]
+    share = box_path_share(xs, [lv.shape[1] for lv in levels], w2ps, W,
+                           mask)
+    assert min(share) > 0.5, share
+    before = corr_window_multilevel.launches
+    got = corr_window_multilevel(f1, levels, ii, jj, xs, w2ps, W, mask=mask)
+    assert corr_window_multilevel.launches == before + 1
+    ref = corr_window_multilevel_plain(f1, levels, ii, jj, xs, w2ps,
+                                       mask=mask)
+    mag = corr_window_multilevel_plain(f1.abs(), [lv.abs() for lv in levels],
+                                       ii, jj, xs, w2ps, mask=mask)
+    torch.cuda.synchronize()
+    assert got.shape == (E, H * W, 4, 64)
+    _assert_corr_close(got, ref, mag)
+    assert not got[mask == 0].any()
+
+
+def test_scatter_kernel_bf16_at_the_bf16_render_shapes(cuda):
+    """Kernel 1 on bf16 values at one bf16 mapping iteration's shapes
+    (configs/Replica/room0_fast.yaml: 2048 + 100 rays x (11 + 8) samples
+    = 40812 points; room0's fine xy plane, 400299 rows of 4 x 32
+    channels),
+    counted as a bf16 launch, against the plain version: both round an
+    fp32 sum to bf16."""
+    n_rows, nu = 400_299, 40_812
+    idx, vals = _inputs(n_rows, nu, 128, torch.bfloat16, torch.int64, cuda)
+    before = (scatter_add_rows.launches, scatter_add_rows.launches_bf16)
+    got = scatter_add_rows(idx, vals, n_rows)
+    assert (scatter_add_rows.launches, scatter_add_rows.launches_bf16) == (
+        before[0] + 1, before[1] + 1)
+    scatter_add_rows(idx, vals.float(), n_rows)
+    assert scatter_add_rows.launches_bf16 == before[1] + 1
+    ref = scatter_add_rows_plain(idx, vals, n_rows)
+    mag = scatter_add_rows_plain(idx, vals.float().abs(), n_rows)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    tol = 5e-5 * mag + 1e-6 + 2.0 ** -7 * ref.float().abs()
+    assert bool(((got.float() - ref.float()).abs() <= tol).all())
+
+
 def test_corr_window_rejects_bad_inputs(cuda):
     f1, levels, ii, jj, xs, w2ps, mask = _corr_inputs(3, 12, 16, 2, 0, cuda,
                                                       C=48)

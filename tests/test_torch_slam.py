@@ -169,8 +169,10 @@ def test_cli_mapping_run_on_cpu(tmp_path):
 def test_unported_dataset_and_mode_raise(tmp_path):
     from mneslam_tpu_torch.data.datasets import get_dataset
 
-    with pytest.raises(ValueError, match="replica"):
-        get_dataset(pconfig.make_config({"dataset": "replica"}))
+    # the five file loaders are ported (tests/test_torch_datasets.py); a
+    # dataset no loader reads still raises
+    with pytest.raises(ValueError, match="kitti"):
+        get_dataset(pconfig.make_config({"dataset": "kitti"}))
     cfg = pconfig.make_config(dict(_overrides(tmp_path), mode="tracking"))
     with pytest.raises(ValueError, match="mapping"):
         MNESLAM(cfg, SyntheticBoxDataset(cfg, num_frames=3), device="cpu")
