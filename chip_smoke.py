@@ -124,10 +124,17 @@ Phases, each of which must pass (any failure exits non-zero):
      13c. the mapping-only path with configs/Replica/room0_fast.yaml's
      keys (bf16 render) on phase 7's box room: last PSNR above 16 dB,
      every kernel-1 launch on bf16 values (6 per iteration), ms per
-     iteration and keyframe beside phase 7's fp32 ones, kernel 1's bf16
-     time at its shapes, and the tiny config's 3 mapper steps in bf16, GPU
-     vs CPU (loss rtol 1e-4, parameters 5e-4). The phase's time is printed
-     beside its budget of 180 s.
+     iteration and keyframe beside phase 7's fp32 ones; kernel 1's bf16
+     route (workspace, two launches) on the six real calls of one bf16
+     iteration: against the plain version (and the staged route too),
+     untouched rows +0.0, the workspace zero after each call, two kernels
+     and no memset in a call (profiler), timed in turns with the staged
+     route, each staged step (zero fill, kernel, cast) alone, both in a
+     CUDA graph, the plain version, `index_add_` into a bf16 table and
+     the bound (the index stream saved for tools/scatter_bf16_ablation.py);
+     and the tiny config's 3 mapper steps in bf16, GPU vs CPU (loss rtol
+     1e-4, parameters 5e-4). The phase's time is printed beside its budget
+     of 180 s.
 Prints the kernels' JSON line, then as the last line
 {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc; imports
 nothing of JAX.
@@ -234,7 +241,8 @@ def _wrappers():
         corr_window_multilevel_mma_rows, corr_window_multilevel_rows,
         corr_window_multilevel_unrolled)
     from mneslam_tpu_torch.kernels.scatter_add_rows import (
-        scatter_add_rows, scatter_add_rows_per_warp)
+        scatter_add_rows, scatter_add_rows_bf16_staged,
+        scatter_add_rows_per_warp)
     from mneslam_tpu_torch.kernels.scatter_rows_blocked import (
         scatter_add_rows_blocked, scatter_add_rows_blocked_tiles)
     from mneslam_tpu_torch.kernels.scatter_rows_bucketed import (
@@ -245,6 +253,7 @@ def _wrappers():
             "corr_window_mma": corr_window_multilevel_mma,
             "corr_window_per_level": corr_window,
             "scatter_add_rows_per_warp": scatter_add_rows_per_warp,
+            "scatter_add_rows_bf16_staged": scatter_add_rows_bf16_staged,
             "corr_window_unrolled": corr_window_multilevel_unrolled,
             "corr_window_rows": corr_window_multilevel_rows,
             "corr_window_mma_rows": corr_window_multilevel_mma_rows,
@@ -712,17 +721,18 @@ def path_scatter_inputs(slam, generator):
     return out
 
 
-def check_scatter(idx, vals, n_rows):
-    """Kernel vs plain version on the same inputs; -> (max abs error, max
-    error / tolerance). Raises SystemExit past the tolerance. For bf16
-    values both sides round an fp32 sum to bf16, so one bf16 ulp (2^-7 of
-    the plain result) is added to the tolerance."""
+def check_scatter(idx, vals, n_rows, fn=None):
+    """Kernel (`fn`, by default `scatter_add_rows`) vs plain version on the
+    same inputs; -> (max abs error, max error / tolerance). Raises
+    SystemExit past the tolerance. For bf16 values both sides round an fp32
+    sum to bf16, so one bf16 ulp (2^-7 of the plain result) is added to the
+    tolerance."""
     import torch
 
     from mneslam_tpu_torch.kernels.scatter_add_rows import (
         scatter_add_rows, scatter_add_rows_plain)
 
-    got = scatter_add_rows(idx, vals, n_rows).float()
+    got = (fn or scatter_add_rows)(idx, vals, n_rows).float()
     ref = scatter_add_rows_plain(idx, vals, n_rows).float()
     mag = scatter_add_rows_plain(idx, vals.float().abs(), n_rows)
     torch.cuda.synchronize()
@@ -2120,6 +2130,144 @@ def tum_files_path(card) -> dict:
     return out
 
 
+def device_ops(fn) -> list:
+    """Names of the device operations (kernels, memsets, copies) that one
+    call of fn() runs, each as often as it ran, from torch.profiler (CPU
+    and CUDA activities, as `profiled` reads it)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+            for _ in range(e.count)]
+
+
+def bf16_ops_in_child(stream: str, width: int) -> list:
+    """`device_ops` of one bf16 `scatter_add_rows` call on the largest table
+    of a saved index stream (values from a seed), in a child process: late
+    in a whole run of this script the profiler recorded no device
+    operation at all (on an H100), while a fresh process reads it."""
+    code = (
+        "import json, sys, torch\n"
+        f"sys.path.insert(0, {ROOT!r})\n"
+        "import chip_smoke as c\n"
+        "from mneslam_tpu_torch.kernels.scatter_add_rows import "
+        "scatter_add_rows\n"
+        f"_, idx, n = max(torch.load({stream!r}), key=lambda x: x[2])\n"
+        "g = torch.Generator(device='cuda').manual_seed(0)\n"
+        f"vals = torch.randn((idx.numel(), {width}), generator=g, "
+        "device='cuda').to(torch.bfloat16)\n"
+        "idx = idx.cuda()\n"
+        "scatter_add_rows(idx, vals, n)\n"
+        "print(json.dumps(c.device_ops(lambda: scatter_add_rows(idx, vals, "
+        "n))))\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, cwd=ROOT)
+    if r.returncode != 0:
+        raise SystemExit(f"kernel 1 bf16: the profiling child failed:\n"
+                         f"{r.stdout}{r.stderr}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def kernel1_bf16(calls, stream: str) -> dict:
+    """Kernel 1's bf16 route (workspace, two launches) on the six calls of
+    one bf16 mapping iteration: each held against the plain version (and
+    the staged route too), its untouched rows +0.0 bit for bit, the
+    workspace all zero after it; then, summed over the calls, the route
+    timed in turns with the staged route (zero fill, kernel, cast; each
+    step also timed alone), both also as device time in a CUDA graph, the
+    plain version, `index_add_` into a bf16 table, the bound; the device
+    operations of one call and the workspace's size. Raises SystemExit on
+    a failed check. `stream`: the calls' saved index stream."""
+    import torch
+
+    from mneslam_tpu_torch.kernels.scatter_add_rows import (
+        BF16_LAUNCHES_PER_CALL, accumulate_into, bf16_workspace,
+        scatter_add_rows, scatter_add_rows_bf16_staged,
+        scatter_add_rows_plain)
+    from mneslam_tpu_torch.tools.measure import (FP32_FLOPS,
+                                                 HBM_BYTES_PER_S, cuda_ms,
+                                                 graph_ms)
+
+    k = {"ms": 0.0, "staged_ms": 0.0, "graph_ms": 0.0,
+         "staged_graph_ms": 0.0,
+         "staged_split": {"zero_fill_ms": 0.0, "kernel_ms": 0.0,
+                          "cast_ms": 0.0},
+         "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "bytes": 0,
+         "max_abs_err": 0.0, "err_ratio": 0.0, "staged_err_ratio": 0.0,
+         "updates": []}
+    for name, idx, vals, n_rows in calls:
+        err, ratio = check_scatter(idx, vals, n_rows)
+        k["max_abs_err"] = max(k["max_abs_err"], err)
+        k["err_ratio"] = max(k["err_ratio"], ratio)
+        k["staged_err_ratio"] = max(k["staged_err_ratio"], check_scatter(
+            idx, vals, n_rows, scatter_add_rows_bf16_staged)[1])
+        got = scatter_add_rows(idx, vals, n_rows)
+        touched = torch.zeros(n_rows, dtype=torch.bool, device="cuda")
+        touched[idx] = True
+        rows, flags = bf16_workspace("cuda")
+        if got[~touched].view(torch.int16).any():
+            raise SystemExit(f"kernel 1 bf16 ({name}): an untouched row is "
+                             f"not +0.0")
+        if rows.any() or flags.any():
+            raise SystemExit(f"kernel 1 bf16 ({name}): the workspace is not "
+                             f"zero after the call")
+        nu, width = vals.shape
+        new_ms, staged_ms = ab_ms(
+            lambda: scatter_add_rows(idx, vals, n_rows),
+            lambda: scatter_add_rows_bf16_staged(idx, vals, n_rows))
+        k["ms"] += new_ms
+        k["staged_ms"] += staged_ms
+        # device time without the host: 10 calls in one CUDA graph
+        k["graph_ms"] += graph_ms(
+            lambda: scatter_add_rows(idx, vals, n_rows), 10)
+        k["staged_graph_ms"] += graph_ms(
+            lambda: scatter_add_rows_bf16_staged(idx, vals, n_rows), 10)
+        split = k["staged_split"]
+        split["zero_fill_ms"] += cuda_ms(lambda: torch.zeros(
+            (n_rows, width), dtype=torch.float32, device="cuda"))
+        table = torch.zeros((n_rows, width), dtype=torch.float32,
+                            device="cuda")
+        split["kernel_ms"] += cuda_ms(
+            lambda: accumulate_into(table, idx, vals))
+        split["cast_ms"] += cuda_ms(lambda: table.to(torch.bfloat16))
+        del table
+        k["plain_ms"] += cuda_ms(
+            lambda: scatter_add_rows_plain(idx, vals, n_rows))
+        # one call: index_add_ into a bf16 table (it sums in bf16: another
+        # function)
+        k["library_ms"] += cuda_ms(lambda: torch.zeros(
+            (n_rows, width), dtype=torch.bfloat16,
+            device="cuda").index_add_(0, idx, vals))
+        # bytes: the bf16 values and the indices read once, the bf16
+        # table written once; operations: one fp32 add per value
+        nbytes = nu * width * 2 + nu * idx.element_size() \
+            + n_rows * width * 2
+        k["bytes"] += nbytes
+        k["bound_ms"] += 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                   nu * width / FP32_FLOPS)
+        k["updates"].append([name, nu, n_rows])
+    # the device operations of one call (the largest table's)
+    ops = bf16_ops_in_child(stream, calls[0][2].shape[1])
+    k["device_ops_per_call"] = ops
+    k["launches_per_call"] = len(ops)
+    rows, flags = bf16_workspace("cuda")
+    k["workspace_bytes"] = (rows.numel() * rows.element_size()
+                            + flags.numel() * flags.element_size())
+    if (len(ops) != BF16_LAUNCHES_PER_CALL
+            or any("memset" in op.lower() for op in ops)):
+        raise SystemExit(f"kernel 1 bf16: expected "
+                         f"{BF16_LAUNCHES_PER_CALL} kernels and no memset "
+                         f"per call, the profiler saw {ops}")
+    return k
+
+
 def bf16_mapping(card, fp32_iter_ms, fp32_kf_ms) -> dict:
     """13c: the mapping-only path with configs/Replica/room0_fast.yaml's
     own keys (its iterations, depth samples and render_dtype bfloat16) over
@@ -2133,11 +2281,7 @@ def bf16_mapping(card, fp32_iter_ms, fp32_kf_ms) -> dict:
     from mneslam_tpu_torch.config import deep_update, make_config
     from mneslam_tpu_torch.configs import ROOM0
     from mneslam_tpu_torch.data.synthetic import SyntheticBoxDataset
-    from mneslam_tpu_torch.kernels.scatter_add_rows import (
-        scatter_add_rows, scatter_add_rows_plain)
     from mneslam_tpu_torch.slam import MNESLAM
-    from mneslam_tpu_torch.tools.measure import (FP32_FLOPS,
-                                                 HBM_BYTES_PER_S, cuda_ms)
 
     with open(os.path.join(ROOT, FAST_CONFIG)) as f:
         keys = yaml.safe_load(f)
@@ -2179,29 +2323,12 @@ def bf16_mapping(card, fp32_iter_ms, fp32_kf_ms) -> dict:
     # calls, the values cast to bf16
     calls = [(name, idx, vals.to(torch.bfloat16), n_rows)
              for name, idx, vals, n_rows in path_scatter_inputs(slam, gen)]
-    k = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-         "bytes": 0, "max_abs_err": 0.0, "err_ratio": 0.0, "updates": []}
-    for name, idx, vals, n_rows in calls:
-        err, ratio = check_scatter(idx, vals, n_rows)
-        nu, width = vals.shape
-        k["max_abs_err"] = max(k["max_abs_err"], err)
-        k["err_ratio"] = max(k["err_ratio"], ratio)
-        k["ms"] += cuda_ms(lambda: scatter_add_rows(idx, vals, n_rows))
-        k["plain_ms"] += cuda_ms(
-            lambda: scatter_add_rows_plain(idx, vals, n_rows))
-        # one call: index_add_ into a bf16 table (it sums in bf16)
-        k["library_ms"] += cuda_ms(lambda: torch.zeros(
-            (n_rows, width), dtype=torch.bfloat16,
-            device="cuda").index_add_(0, idx, vals))
-        # bytes: the bf16 values and the indices read once, the bf16
-        # table written once; operations: one fp32 add per value
-        nbytes = nu * width * 2 + nu * idx.element_size() \
-            + n_rows * width * 2
-        k["bytes"] += nbytes
-        k["bound_ms"] += 1e3 * max(nbytes / HBM_BYTES_PER_S,
-                                   nu * width / FP32_FLOPS)
-        k["updates"].append([name, nu, n_rows])
-    out["kernel1_bf16"] = k
+    # the index stream (also for tools/scatter_bf16_ablation.py)
+    stream = os.path.join(RUN_OUT, "real_stream_bf16.pt")
+    os.makedirs(RUN_OUT, exist_ok=True)
+    torch.save([(name, idx.cpu(), n_rows) for name, idx, _, n_rows in calls],
+               stream)
+    out["kernel1_bf16"] = kernel1_bf16(calls, stream)
 
     # the tiny config in bf16, GPU vs CPU
     losses, rel, pdiff = small_parity("bfloat16")
@@ -2262,12 +2389,26 @@ def files_phase(card, fp32_iter_ms, fp32_kf_ms) -> dict:
         f"against fp32 "
         f"{fp32_iter_ms:.3f} / {fp32_kf_ms:.1f} ms (phase 7, 50 "
         f"iterations), on {card}")
-    log(f"scatter_add_rows bf16, one bf16 iteration's 6 calls: kernel "
-        f"{k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, index_add_ (bf16 "
-        f"table) {k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
-        f"({k['bytes']} bytes at 3.35 TB/s), max abs err "
+    sp = k["staged_split"]
+    log(f"scatter_add_rows bf16, one bf16 iteration's 6 calls: workspace "
+        f"route {k['ms']:.4f} ms ({k['launches_per_call']} device "
+        f"operations a call, profiled in a child process: "
+        f"{k['device_ops_per_call']}; workspace "
+        f"{k['workspace_bytes']} bytes), staged route {k['staged_ms']:.4f} "
+        f"ms (in turns with it); in a CUDA graph {k['graph_ms']:.4f} / "
+        f"{k['staged_graph_ms']:.4f} ms; plain {k['plain_ms']:.4f} ms, "
+        f"index_add_ (bf16 table, sums in bf16) {k['library_ms']:.4f} ms, "
+        f"bound "
+        f"{k['bound_ms']:.4f} ms ({k['bytes']} bytes at 3.35 TB/s; "
+        f"{100 * k['bound_ms'] / k['ms']:.1f}% of it), max abs err "
         f"{k['max_abs_err']:.3e}, err / tolerance {k['err_ratio']:.3f} "
-        f"(+ one bf16 ulp); updates {k['updates']}")
+        f"(staged {k['staged_err_ratio']:.3f}; + one bf16 ulp); untouched "
+        f"rows +0.0, workspace zero after each call; updates "
+        f"{k['updates']}, on {card}")
+    log(f"scatter_add_rows bf16 staged route, each step alone over the 6 "
+        f"calls: zero fill {sp['zero_fill_ms']:.4f} ms, kernel "
+        f"{sp['kernel_ms']:.4f} ms, cast {sp['cast_ms']:.4f} ms, sum "
+        f"{sum(sp.values()):.4f} ms; the route {k['staged_ms']:.4f} ms")
     p = fast["parity"]
     log(f"bf16 parity (tiny config, 3 mapper steps, GPU vs CPU): losses "
         f"{p['losses']}; max rel loss diff {p['max_rel_loss_diff']:.3e} "
@@ -2771,12 +2912,15 @@ def main():
                              "mapping_bf16":
                                  fast["launches"]["scatter_add_rows_bf16"]},
         "bf16": {**fast["kernel1_bf16"],
+                 "route": "workspace: accumulate + emit",
                  "launches": fast["launches"]["scatter_add_rows_bf16"],
                  "fp32_launches": fast["launches"]["scatter_add_rows"]
                  - fast["launches"]["scatter_add_rows_bf16"],
                  "bound_by": "bytes",
                  "timed_as": "sum of one bf16 mapping iteration's 6 calls",
-                 "library": "index_add_ into a bf16 table (sums in bf16)",
+                 "library": "none computes the same function; library_ms "
+                            "is index_add_ into a bf16 table, which sums "
+                            "in bf16",
                  "iter_ms": fast["iter_ms"],
                  "keyframe_ms": fast["keyframe_ms"]},
         "max_abs_err": max_err,

@@ -30,7 +30,8 @@ def test_every_module_imports_without_jax():
               "kernels.scatter_cluster", "kernels.scatter_rows_blocked",
               "kernels.scatter_rows_bucketed",
               "tools.measure", "tools.prof_corr", "tools.prof_scatter",
-              "tools.scatter_ablation", "ops.mc", "mapping.mesher",
+              "tools.scatter_ablation", "tools.scatter_bf16_ablation",
+              "ops.mc", "mapping.mesher",
               "mapping.cull", "eval.recon", "utils.vis",
               "tools.eval_recon", "tools.prof_determinism",
               "ops.rotations", "utils.params_io", "agents.comms",

@@ -15,7 +15,8 @@ import torch
 from mneslam_tpu.ops import interp as jinterp
 from mneslam_tpu.ops import pallas_kernels
 from mneslam_tpu_torch.kernels.scatter_add_rows import (
-    scatter_add_rows, scatter_add_rows_plain)
+    bf16_workspace, scatter_add_rows, scatter_add_rows_bf16_staged,
+    scatter_add_rows_plain)
 from mneslam_tpu_torch.ops import interp
 
 torch.set_num_threads(1)
@@ -104,20 +105,34 @@ def test_plain_scatter_matches_pallas_and_xla(n_rows, nu, width):
     assert not got[n_rows - 5:].any()
 
 
-def test_plain_scatter_bf16_accumulates_in_fp32():
+@pytest.mark.parametrize("out_of_range", [False, True])
+@pytest.mark.parametrize("width", [128, 100])
+@pytest.mark.parametrize("idx_dtype", [np.int32, np.int64])
+def test_plain_scatter_bf16_accumulates_in_fp32(idx_dtype, width,
+                                                out_of_range):
     """bf16 values: sums in fp32, result cast to bf16 — the JAX
-    dispatcher's bf16 rule (exact agreement after the final cast)."""
+    dispatcher's bf16 rule (exact agreement after the final cast), for
+    int32 and int64 indices, a width that is not a multiple of 8, and
+    indices on both sides of [0, n_rows), which are dropped (JAX's
+    `mode="drop"` without wrapping negative indices)."""
     rng = np.random.default_rng(3)
-    n_rows, nu, width = 301, 128, 128
-    idx = rng.integers(0, n_rows, nu).astype(np.int32)
+    n_rows, nu = 301, 128
+    idx = rng.integers(0, n_rows, nu).astype(idx_dtype)
+    drop = {}
+    if out_of_range:
+        idx[:6] = [-1, -7, n_rows, n_rows + 5, -n_rows, 2 * n_rows]
+        drop = {"mode": "drop", "wrap_negative_indices": False}
     vals = rng.standard_normal((nu, width)).astype(np.float32)
     vals_bf = torch.tensor(vals).to(torch.bfloat16)
     got = scatter_add_rows(torch.tensor(idx), vals_bf, n_rows)
     assert got.dtype == torch.bfloat16
     ref = jnp.zeros((n_rows, width)).at[jnp.asarray(idx)].add(
-        jnp.asarray(vals_bf.float().numpy())).astype(jnp.bfloat16)
+        jnp.asarray(vals_bf.float().numpy()), **drop).astype(jnp.bfloat16)
     np.testing.assert_array_equal(got.float().numpy(),
                                   np.asarray(ref.astype(jnp.float32)))
+    # untouched rows are +0.0, bit for bit
+    untouched = np.setdiff1d(np.arange(n_rows), idx)
+    assert not got[torch.tensor(untouched)].view(torch.int16).any()
 
 
 def test_scatter_drops_out_of_range_rows():
@@ -150,3 +165,21 @@ def test_scatter_checks_arguments_and_counts_only_kernel_launches():
     before = scatter_add_rows.launches
     scatter_add_rows(torch.zeros(3, dtype=torch.long), vals, 5)
     assert scatter_add_rows.launches == before  # CPU: plain version
+
+
+def test_staged_bf16_entry_runs_the_plain_version_on_the_cpu():
+    """The first port's bf16 route, kept beside the workspace route: on
+    CPU tensors it is the plain version, counts no launch and touches no
+    workspace; it takes bf16 values only."""
+    rng = np.random.default_rng(5)
+    idx = torch.tensor(rng.integers(-2, 42, 64))
+    vals = torch.tensor(rng.standard_normal((64, 24)),
+                        dtype=torch.float32).to(torch.bfloat16)
+    before = scatter_add_rows_bf16_staged.launches
+    got = scatter_add_rows_bf16_staged(idx, vals, 40)
+    assert scatter_add_rows_bf16_staged.launches == before
+    assert torch.equal(got, scatter_add_rows_plain(idx, vals, 40))
+    assert torch.equal(got, scatter_add_rows(idx, vals, 40))
+    assert bf16_workspace("cpu") is None
+    with pytest.raises(TypeError, match="bfloat16"):
+        scatter_add_rows_bf16_staged(idx, vals.float(), 40)

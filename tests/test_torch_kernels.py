@@ -34,7 +34,8 @@ from mneslam_tpu_torch.kernels.corr_window import (
     corr_window_multilevel_rows, corr_window_multilevel_unrolled,
     corr_window_plain)
 from mneslam_tpu_torch.kernels.scatter_add_rows import (
-    scatter_add_rows, scatter_add_rows_per_warp, scatter_add_rows_plain)
+    bf16_workspace, scatter_add_rows, scatter_add_rows_bf16_staged,
+    scatter_add_rows_per_warp, scatter_add_rows_plain)
 from mneslam_tpu_torch.kernels import scatter_rows_blocked as srb
 from mneslam_tpu_torch.kernels import scatter_rows_bucketed as srk
 from mneslam_tpu_torch.kernels.scatter_cluster import CLUSTERS
@@ -653,6 +654,149 @@ def test_scatter_kernel_bf16_at_the_bf16_render_shapes(cuda):
     assert got.dtype == torch.bfloat16
     tol = 5e-5 * mag + 1e-6 + 2.0 ** -7 * ref.float().abs()
     assert bool(((got.float() - ref.float()).abs() <= tol).all())
+
+
+def _bf16_route_checks(got, idx, vals, n_rows):
+    """The bf16 route's result against the plain version (the scatter's
+    tolerance plus one bf16 ulp), its untouched rows +0.0 bit for bit, and
+    the workspace all zero after the call."""
+    _assert_scatter_close(got, idx, vals, n_rows)
+    touched = torch.zeros(n_rows, dtype=torch.bool, device=idx.device)
+    keep = (idx >= 0) & (idx < n_rows)
+    touched[idx[keep].long()] = True
+    assert not got[~touched].view(torch.int16).any()
+    rows, flags = bf16_workspace(idx.device)
+    assert not rows.any() and not flags.any()
+
+
+# (n_rows, nu, width, idx dtype, pattern): the bf16 render's shapes (room0
+# fine xy, 40812 updates), widths that are not a multiple of 8 or of 128
+# (100 takes the float4 accumulate, 30 the other), nu = 0, n_rows = 0
+# (every index out of range), indices out of range on both sides, every
+# update on one row, values not 8-byte aligned (the other accumulate)
+BF16_ROUTE_CASES = [
+    (400_299, 40_812, 128, torch.int64, "mixed"),
+    (400_299, 40_812, 128, torch.int32, "mixed"),
+    (1001, 500, 16, torch.int32, "mixed"),
+    (1001, 500, 100, torch.int64, "mixed"),
+    (77, 50, 30, torch.int32, "mixed"),
+    (10, 0, 128, torch.int64, "mixed"),
+    (0, 50, 128, torch.int64, "mixed"),
+    (301, 256, 128, torch.int32, "out_of_range"),
+    (1000, 5000, 128, torch.int64, "one_row"),
+    (1000, 5000, 100, torch.int32, "one_row"),
+    (1001, 500, 128, torch.int64, "misaligned"),
+]
+
+
+def _bf16_route_inputs(n_rows, nu, width, idx_dtype, pattern, device):
+    idx, vals = _inputs(n_rows, nu, width, torch.bfloat16, torch.int64,
+                        device)
+    if pattern == "out_of_range":
+        idx[::3] = -1 - idx[::3]                  # below 0
+        idx[1::3] = n_rows + idx[1::3]            # at n_rows and past it
+    elif pattern == "one_row":
+        idx[:] = 123
+    elif pattern == "misaligned":          # values 2 bytes off 8
+        flat = torch.empty(nu * width + 1, dtype=vals.dtype, device=device)
+        vals = flat[1:].view(nu, width).copy_(vals)
+    return idx.to(idx_dtype), vals
+
+
+@pytest.mark.parametrize("n_rows,nu,width,idx_dtype,pattern",
+                         BF16_ROUTE_CASES)
+def test_scatter_bf16_route_matches_plain(cuda, n_rows, nu, width, idx_dtype,
+                                          pattern):
+    """The two-launch bf16 route (workspace, flags, emit) and the staged
+    route of the first port, each against the plain version."""
+    idx, vals = _bf16_route_inputs(n_rows, nu, width, idx_dtype, pattern,
+                                   cuda)
+    before = (scatter_add_rows.launches, scatter_add_rows.launches_bf16)
+    got = scatter_add_rows(idx, vals, n_rows)
+    assert (scatter_add_rows.launches, scatter_add_rows.launches_bf16) == (
+        before[0] + 1, before[1] + 1)
+    _bf16_route_checks(got, idx, vals, n_rows)
+    staged = scatter_add_rows_bf16_staged.launches
+    _assert_scatter_close(scatter_add_rows_bf16_staged(idx, vals, n_rows),
+                          idx, vals, n_rows)
+    assert scatter_add_rows_bf16_staged.launches == staged + 1
+
+
+def test_scatter_bf16_route_leaves_no_trace(cuda):
+    """Calls in a row at other row counts and widths (the workspace's row
+    stride changes), one of them with no host synchronisation allowed:
+    each result is the plain version's and the workspace is zero after
+    each."""
+    for n_rows, nu, width, idx_dtype in [(50_000, 20_000, 128, torch.int64),
+                                         (7_001, 3_000, 16, torch.int32),
+                                         (20_000, 9_000, 100, torch.int64),
+                                         (50_000, 20_000, 128, torch.int32)]:
+        idx, vals = _inputs(n_rows, nu, width, torch.bfloat16, idx_dtype,
+                            cuda, seed=n_rows)
+        got = scatter_add_rows(idx, vals, n_rows)
+        _bf16_route_checks(got, idx, vals, n_rows)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = scatter_add_rows(idx, vals, n_rows)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _bf16_route_checks(got, idx, vals, n_rows)
+
+
+def test_scatter_bf16_route_under_graph_capture_and_on_two_streams(cuda):
+    """Both launches capture into a CUDA graph once the workspace is big
+    enough (growing it inside a capture raises); a call on a second stream
+    waits for the first stream's use of the workspace."""
+    idx, vals = _inputs(20_000, 9_000, 128, torch.bfloat16, torch.int64,
+                        cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        scatter_add_rows(idx, vals, 20_000)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = scatter_add_rows(idx, vals, 20_000)
+    graph.replay()
+    _bf16_route_checks(got, idx, vals, 20_000)
+    rows, _ = bf16_workspace(cuda)
+    big_rows = rows.numel() // 128 + 1
+    with pytest.raises(RuntimeError, match="before a CUDA-graph capture"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            scatter_add_rows(idx, vals, big_rows)
+    other = torch.cuda.Stream()
+    with torch.cuda.stream(other):
+        got = scatter_add_rows(idx, vals, 20_000)
+    torch.cuda.current_stream().wait_stream(other)
+    _bf16_route_checks(got, idx, vals, 20_000)
+
+
+def test_scatter_bf16_route_rezeroes_after_a_failed_launch(cuda,
+                                                           monkeypatch):
+    """A launch that reports an error raises (no fallback) and leaves the
+    workspace marked dirty: the next call re-zeroes it first."""
+    from mneslam_tpu_torch.kernels import build
+    from mneslam_tpu_torch.kernels import scatter_add_rows as mod
+
+    idx, vals = _inputs(5_000, 2_000, 128, torch.bfloat16, torch.int64,
+                        cuda)
+    scatter_add_rows(idx, vals, 5_000)
+    rows, flags = bf16_workspace(cuda)
+
+    def failing(*args):
+        rows.fill_(1.0)            # what a half-run launch could leave
+        flags.fill_(1)
+        return 700
+
+    failing.argtypes = ()          # set up, as the loaded entry is
+    lib = type("Lib", (), {"scatter_add_rows_bf16_once": failing})
+    with monkeypatch.context() as m:
+        m.setattr(build, "load", lambda name: lib)
+        with pytest.raises(RuntimeError, match="cudaError 700"):
+            scatter_add_rows(idx, vals, 5_000)
+    assert mod._workspaces[vals.device.index].dirty
+    _bf16_route_checks(scatter_add_rows(idx, vals, 5_000), idx, vals, 5_000)
 
 
 def test_corr_window_rejects_bad_inputs(cuda):

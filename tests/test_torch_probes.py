@@ -32,7 +32,9 @@ from mneslam_tpu_torch.kernels.scatter_rows_blocked import (
 from mneslam_tpu_torch.kernels.scatter_rows_bucketed import (
     bucket_route, cluster_route, scatter_add_rows_bucketed,
     scatter_add_rows_bucketed_plain, scatter_add_rows_bucketed_tiles)
-from mneslam_tpu_torch.tools import prof_corr, prof_scatter, scatter_ablation
+from mneslam_tpu_torch.tools import (prof_corr, prof_scatter,
+                                     scatter_ablation,
+                                     scatter_bf16_ablation)
 from test_torch_correlation import HT, WD, _kernel_inputs, _t
 
 torch.set_num_threads(1)
@@ -428,8 +430,21 @@ def test_probe_failure_exits_nonzero(capsys, monkeypatch):
     assert f"fine@11.5k/blockedT{t}C{cl}" in res["failed"]
 
 
+def test_bf16_ablation_variants_are_in_the_source():
+    """Each variant of the bf16 route's ablation changes text found once
+    in kernel 1's source (so an edit of the kernel cannot leave a variant
+    silently equal to the base)."""
+    from mneslam_tpu_torch.kernels import build
+
+    with open(os.path.join(build.CSRC, "scatter_add_rows.cu")) as f:
+        src = f.read()
+    for name, subs in scatter_bf16_ablation.VARIANTS.items():
+        for text, repl in subs:
+            assert src.count(text) == 1 and text != repl, name
+
+
 @pytest.mark.parametrize("probe", [prof_corr, prof_scatter,
-                                   scatter_ablation])
+                                   scatter_ablation, scatter_bf16_ablation])
 def test_probes_raise_without_a_gpu(probe):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the probe would run on it")
