@@ -99,12 +99,14 @@ Phases, each of which must pass (any failure exits non-zero):
      targets as in phases 5-6, every frame admitted; with the random
      update net the key poses leave the room's bound and nothing is
      distilled): both terminates' outputs, the descriptor DB holding every
-     mapped keyframe, a cross-agent loop aligned, a distillation by each
-     agent and its fused mesh, kernel 1's launches = 6 x (mapping +
-     distillation iterations), kernel 2's = the agents' lookups; times
-     per tracked frame, mapped keyframe, alignment, distillation and fused
-     mesh, and a torch.profiler table of 5 distillation iterations
-     (chiprun_out/chip_smoke/distill_profile.txt); 12d. `python -m
+     mapped keyframe, a cross-agent loop aligned and at least one
+     cross-agent closure accepted (the trajectory deformation ran), a
+     distillation by each agent and its fused mesh, kernel 1's launches =
+     6 x (mapping + distillation iterations), kernel 2's = the agents'
+     lookups; times per tracked frame, mapped keyframe, alignment,
+     distillation and fused mesh, and a torch.profiler table of 5
+     distillation iterations (chiprun_out/chip_smoke/distill_profile.txt);
+     12d. `python -m
      mneslam_tpu_torch.cli --num_agents 2 --spawn` on phase 3's tiny
      config: both children exit 0 and write the on-disk exchange. The
      phase's time is printed beside its budget of 240 s;
@@ -134,7 +136,52 @@ Phases, each of which must pass (any failure exits non-zero):
      the bound (the index stream saved for tools/scatter_bf16_ablation.py);
      and the tiny config's 3 mapper steps in bf16, GPU vs CPU (loss rtol
      1e-4, parameters 5e-4). The phase's time is printed beside its budget
-     of 180 s.
+     of 180 s;
+ 14. the row-sharded mapper and the mesh fleet (`mneslam_tpu_torch/
+     parallel/`): configs/Replica/room0_v5e8.yaml's keys (bf16 render,
+     shard_plane_rows) over room0 widths, the box-room frames rendered
+     once here and handed to the ranks in a file, the ranks child
+     processes of this script (`--shard-rank`, a timeout each). 14a. one
+     rank over NCCL: the row-sharded `Mapper.optimize` (shard_gather_every
+     1) on map calls of 20, 10 and 10 iterations (room0's 500 / 50 cut)
+     against the plain mapper from the same seeds (the same batches and
+     uniforms): losses rtol 1e-4, parameters 5e-4 (13c's bf16 bounds),
+     kernel 1 six launches per iteration; 14b. 4 ranks on cuda:0 over
+     gloo (through host memory): the gradient of one batch
+     (`Mapper.gradients`) against the plain mapper's, per leaf within
+     1e-4 of its largest element in fp32 (fold "after" and "before") and
+     2e-2 in bf16, then the optimize in fp32 on calls of 1 and 2
+     iterations (cut to fit the budget): the sync seam and fold "before"
+     against the plain mapper, shard_gather_every 8 against one rank's
+     (14a), losses rtol 1e-4, parameters 5e-4 on the elements whose
+     Adam second moment is not at the level of the sums' rounding
+     (SHARD_LOSS_RTOL's comment; the rest's share printed, beside the
+     same readings of the plain mapper against itself and of one rank
+     against it); kernel 1 six launches per iteration on every rank and
+     the ranks' maps equal in every run; ms per iteration by rank (gloo
+     through host memory on one card: not a collective's speed); 14c.
+     `torchrun --nproc_per_node=2` of `cli.main` (each rank through
+     `--cli-rank`, which writes its launch counts after `cli.main`)
+     on room0_v5e8.yaml over 6 box-room frames (fp32, the sync seam,
+     first_iters 3, iters 2): `parallel/mesh.init_world` on every rank
+     picks gloo on cuda:0, rank 0 leads `MNESLAM` and writes the outputs,
+     rank 1 follows its map calls; its per-keyframe losses within rtol
+     1e-4 of a one-process `cli.main` of the same config (the plain
+     mapper), kernel 1 six launches per iteration on both ranks; 14d.
+     `MeshAgentFleet.run_mapping_only`, two agents at room0 widths on the
+     first 11 frames of 12c's segments (first_iters 50, loop_iters 10,
+     fusion off), against `MultiAgentRunner.run_mapping_only`, which runs
+     twice: the same keyframes, every keyframe's loss within rtol 1e-4 of
+     the runner's, the parameters' distance printed beside the runner's
+     from itself (the card's run-to-run spread), every mapped keyframe in
+     the descriptor DB, kernel 1 six launches per iteration; then
+     `MeshAgentFleet.run_slam` for two oracle agents on phase 5's tiny
+     config (kernel 2 once per lookup, kernel 1 six times per mapping
+     iteration, finite trajectories) and `python -m mneslam_tpu_torch.cli
+     --device_mesh --num_agents 2` on phase 3's tiny config (exit 0, both
+     agents' outputs). 14d's runs in this process go first, on a quiet
+     card; then the child processes of 14b, 14c and 14d's CLI run at the
+     same time. The phase's time is printed beside its budget of 150 s.
 Prints the kernels' JSON line, then as the last line
 {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc; imports
 nothing of JAX.
@@ -142,6 +189,7 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import math
 import os
@@ -1772,6 +1820,8 @@ def multiagent_phase(card):
          f"{want_keys}", db_keys == want_keys),
         ("no cross-agent loop detected and aligned",
          cross and sum(c.alignments for c in collabs) >= 1),
+        ("no cross-agent closure accepted (the trajectory deformation "
+         "did not run)", sum(c.closures_accepted for c in collabs) >= 1),
         ("an agent distilled from no other",
          all(c.distillations >= 1 for c in collabs)),
         (f"kernel 1 launches {ma_launches['scatter_add_rows']} != "
@@ -2420,6 +2470,1009 @@ def files_phase(card, fp32_iter_ms, fp32_kf_ms) -> dict:
     return {"image_io": io_res, "tum": tum, "fast": fast, "seconds": t13}
 
 
+# ---------------------------------------------------------------------------
+# 14. the row-sharded mapper and the mesh fleet
+# ---------------------------------------------------------------------------
+
+# phase 14's printed budget (not a failure when over)
+SHARD_BUDGET_S = 150.0
+# 14a: (frame, iterations) per map call; room0's first_iters 500 and
+# iters 50 cut to 20 and 10
+SHARD_SCHEDULE = ((0, 20), (5, 10), (10, 10))
+# 14b: cut further to fit the budget (gloo through host memory moves
+# every packed table, 0.26 GB in bf16 and 0.52 GB in fp32, per iteration);
+# two iterations in the second call, so its loss is taken after a step
+# of the Adam state carried from the first
+SHARD_B_SCHEDULE = ((0, 1), (5, 2))
+SHARD_RANKS = 4             # 14b: ranks on cuda:0 over gloo
+SHARD_CHILD_TIMEOUT_S = 300.0
+# 14a (one rank) against the plain mapper: 13c's bf16 bounds, loss rtol
+# 1e-4 and parameters 5e-4. Over several ranks a sum's order changes: the
+# ranks' partial gradients are summed across ranks (in bf16 rounded to
+# bf16 first, as in the JAX package), so the decoder and the planes
+# differ from the plain mapper's by a few ulps after a step. An element
+# first touched with a gradient at the level of that difference (or zero
+# in one run and not in the other) takes Adam's first step, about the
+# learning rate (5e-3) whatever the gradient's size, in one run only or
+# in the other direction. On the card that moves a few of the 64.4M
+# elements of 4 ranks' map past 5e-4 (up to 7e-3; the 14b lines print how
+# many, how many the first batch left untouched and how many lie at a
+# block's edge; PERF.md, PR 13), and none of the plain mapper's against
+# itself. So the parameters hold 5e-4 on all but SHARD_PARAM_SHARE of the
+# elements, and every element within SHARD_PARAM_STEPS learning rates per
+# iteration (the most two runs of Adam put between one element; it
+# catches a diverged or non-finite map). One batch's gradient is held per
+# leaf (max |error| over max |reference|, tests/test_parallel.py:528-531):
+# 1e-4 in fp32, and in bf16 SHARD_GRAD_TOL_BF16, 5 bf16 ulps (the four
+# ranks' bf16 partials are rounded, then summed in bf16), beside the
+# plain mapper's bf16 gradient against itself and one rank's against it.
+SHARD_LOSS_RTOL = 1e-4
+SHARD_PARAM_TOL = 5e-4
+SHARD_PARAM_SHARE = 1e-6
+SHARD_PARAM_STEPS = 2
+SHARD_GRAD_TOL = 1e-4
+SHARD_GRAD_TOL_BF16 = 2e-2
+# 14d: the first FLEET_FRAMES frames of each of 12c's segments
+FLEET_FRAMES = 11
+FLEET_FIRST_ITERS = 50      # room0's 500 cut
+FLEET_LOOP_ITERS = 10       # room0's loop_iters 100 cut (alignments)
+
+
+def shard_config():
+    """configs/Replica/room0_v5e8.yaml (its keys over room0.yaml: bf16
+    render, shard_plane_rows, shard_gather_every 8) on the synthetic box
+    room."""
+    from mneslam_tpu_torch.config import (default_config, deep_update,
+                                          load_config)
+
+    cwd = os.getcwd()
+    os.chdir(ROOT)      # the configs' inherit_from paths are relative
+    try:
+        cfg = deep_update(default_config(), load_config(
+            "configs/Replica/room0_v5e8.yaml"))
+    finally:
+        os.chdir(cwd)
+    cfg["dataset"] = "synthetic"
+    cfg["data"]["output"] = RUN_OUT
+    return cfg
+
+
+def params_of(state) -> list:
+    from mneslam_tpu_torch.models.scene_rep import param_leaves
+
+    return [t.detach().float().cpu() for t in param_leaves(state.params)]
+
+
+def max_param_diff(a: list, b: list) -> float:
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def param_stats(params: list, ref: list, grads=None, ranks=1) -> dict:
+    """`params` against `ref`: the largest difference, and the count and
+    share of elements beyond SHARD_PARAM_TOL (non-finite ones counted);
+    with `grads` (the first batch's gradient), how many of those the first
+    batch left untouched, and how many of the planes' lie on the first or
+    last y-row of one of `ranks` row blocks."""
+    import torch
+
+    over, n, untouched, edge = 0, 0, 0, 0
+    for i, (p, r) in enumerate(zip(params, ref)):
+        beyond = ~((p - r).abs() <= SHARD_PARAM_TOL)
+        over += int(beyond.sum())
+        n += p.numel()
+        if grads is not None and bool(beyond.any()):
+            untouched += int((grads[i][beyond] == 0).sum())
+            if p.dim() == 3:
+                hb = -(-p.shape[1] // ranks)
+                y = torch.nonzero(beyond)[:, 1] % hb
+                edge += int(((y == 0) | (y == hb - 1)).sum())
+    out = {"max_param_diff": max_param_diff(params, ref),
+           "n_beyond": over, "share_beyond": over / n}
+    if grads is not None:
+        out.update(beyond_untouched_by_first_batch=untouched,
+                   beyond_at_block_edge=edge)
+    return out
+
+
+def shard_run(spec: dict, run: dict, mesh, device) -> dict:
+    """One row-sharded mapping run on this rank: the schedule's keyframes
+    added and optimized from the agent's seeds -> losses, ms per iteration
+    by call, kernel-1 launches, and (rank 0) the parameters against the
+    reference file's."""
+    import torch
+
+    from mneslam_tpu_torch.device import make_generator
+    from mneslam_tpu_torch.kernels.scatter_add_rows import scatter_add_rows
+    from mneslam_tpu_torch.mapping.mapper import Mapper
+    from mneslam_tpu_torch.models.scene_rep import SceneRep
+    from mneslam_tpu_torch.parallel import mesh as pm
+
+    cfg = run["config"]
+    scene = SceneRep(cfg, device)
+    mapper = Mapper(cfg, scene, num_kf=spec["num_kf"],
+                    rays_per_kf=spec["rays_per_kf"], mesh=mesh,
+                    shard_plane_rows=True)
+    state = mapper.init_state(make_generator(device, 42))
+    gen = make_generator(device, 1000)
+    torch.cuda.synchronize()
+    scatter_add_rows.launches = 0
+    if run.get("grads"):
+        return shard_grads(spec, run, mapper, state, gen, device)
+    losses, ms, iters = [], [], 0
+    for fi, n in run["schedule"]:
+        frame = {k: torch.as_tensor(v, device=device)
+                 for k, v in spec["frames"][fi].items()}
+        pose = torch.as_tensor(spec["poses"][fi], device=device)
+        frame["frame_id"] = fi
+        state = mapper.add_keyframe(state, fi, frame, pose, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = mapper.optimize(state, frame, pose, gen, iters=n)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0) / n)
+        losses.append(float(met["loss"]))
+        iters += n
+        print(f"  frame {fi}: {n} iterations, {ms[-1]:.1f} ms each, loss "
+              f"{losses[-1]}", flush=True)
+    launches = scatter_add_rows.launches
+    # every rank's replica against rank 0's
+    group = mapper.group
+    replica_diff = 0.0
+    for t in params_of(state):
+        t0_ = pm.broadcast(t.to(device), group)
+        replica_diff = max(replica_diff, float((t0_.cpu() - t).abs().max()))
+    mp = cfg["mapping"]
+    out = {"losses": losses, "ms_per_iter": ms, "launches": launches,
+           "iters": iters, "replica_diff": replica_diff,
+           "lr": max(float(mp["lr_embed"]), float(mp["lr_decoder"])),
+           "n_global": mapper.n_global, "n_cur": mapper.n_cur,
+           "transport": group.transport, "ranks": group.size}
+    if group.index == 0:
+        params = params_of(state)
+        if run.get("save"):
+            torch.save(params, run["save"])
+        if run.get("ref"):
+            out.update(param_stats(
+                params, torch.load(run["ref"]), ranks=group.size,
+                grads=torch.load(run["g1"]) if run.get("g1") else None))
+    if run.get("profile"):
+        # 3 more iterations of the last call under the profiler (after
+        # the counts and the comparison): kernel time and launches
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            mapper.optimize(state, frame, pose, gen, iters=3)
+            torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / 3
+        events = prof.key_averages()
+        kern = [e for e in events if e.device_type == DeviceType.CUDA
+                and not e.is_user_annotation]
+        dev_ms = 1e-3 * sum(e.self_device_time_total for e in kern) / 3
+        with open(run["profile"], "w") as f:
+            f.write(f"3 row-sharded iterations on rank {group.index} of "
+                    f"{group.size}\n" + events.table(
+                        sort_by="self_cuda_time_total", row_limit=30))
+        out["profile"] = {"wall_ms": wall, "device_ms": dev_ms,
+                          "launches": sum(e.count for e in kern) / 3}
+    return out
+
+
+def first_keyframe(spec, mapper, state, gen, device):
+    """Frame 0 added as the first keyframe -> (state, frame, pose)."""
+    import torch
+
+    frame = {k: torch.as_tensor(v, device=device)
+             for k, v in spec["frames"][0].items()}
+    pose = torch.as_tensor(spec["poses"][0], device=device)
+    frame["frame_id"] = 0
+    return mapper.add_keyframe(state, 0, frame, pose, gen), frame, pose
+
+
+def grad_rel_err(got: list, ref: list) -> float:
+    """Per leaf max |error| over max |reference|, the largest over the
+    leaves (tests/test_parallel.py:528-531's measure)."""
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(got, ref))
+
+
+def shard_grads(spec, run, mapper, state, gen, device) -> dict:
+    """The gradient of the first keyframe's first batch on this rank
+    (`Mapper.gradients`, no step), every rank's against rank 0's and
+    (rank 0) against the reference file's."""
+    import torch
+
+    from mneslam_tpu_torch.kernels.scatter_add_rows import scatter_add_rows
+    from mneslam_tpu_torch.parallel import mesh as pm
+
+    state, frame, pose = first_keyframe(spec, mapper, state, gen, device)
+    grads = mapper.gradients(state, frame, pose, gen)
+    torch.cuda.synchronize()
+    group = mapper.group
+    replica = max(float((pm.broadcast(g, group) - g).abs().max())
+                  for g in grads)
+    out = {"launches": scatter_add_rows.launches, "iters": 1,
+           "replica_diff": replica, "losses": [], "ranks": group.size,
+           "transport": group.transport}
+    if group.index == 0:
+        out["grad_rel_err"] = grad_rel_err(
+            [g.float().cpu() for g in grads], torch.load(run["grads"]))
+    return out
+
+
+def shard_rank_main(argv) -> int:
+    """A rank of phase 14 (`chip_smoke.py --shard-rank SPEC RANK WORLD
+    BACKEND STORE OUT`): joins the world through the file store, runs the
+    spec's runs, writes its results."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from mneslam_tpu_torch.device import resolve_device
+    from mneslam_tpu_torch.parallel import mesh as pm
+
+    spec_path, rank, world, backend, store, out = argv
+    device = resolve_device("cuda:0")
+    torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=int(rank), world_size=int(world),
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        spec = torch.load(spec_path, weights_only=False)
+        mesh = pm.make_mesh(1)
+        print(f"rank {rank}: {mesh}", flush=True)
+        results = [shard_run(spec, run, mesh, device)
+                   for run in spec["runs"]]
+    finally:
+        dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(results, f)
+    return 0
+
+
+def spawn_ranks(tag: str, spec: dict, world: int, backend: str) -> list:
+    """`world` ranks of `shard_rank_main` on cuda:0, started together ->
+    each rank's results. Raises SystemExit when a rank fails or outlives
+    SHARD_CHILD_TIMEOUT_S."""
+    import torch
+
+    os.makedirs(RUN_OUT, exist_ok=True)
+    spec_path = os.path.join(RUN_OUT, f"{tag}_spec.pt")
+    torch.save(spec, spec_path)
+    store = os.path.join(RUN_OUT, f"{tag}_store")
+    if os.path.exists(store):
+        os.remove(store)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    procs = []
+    for rank in range(world):
+        out = os.path.join(RUN_OUT, f"{tag}_rank{rank}.json")
+        if os.path.exists(out):
+            os.remove(out)
+        logf = open(os.path.join(OUT, f"{tag}_rank{rank}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--shard-rank", spec_path, str(rank), str(world), backend,
+             store, out], cwd=ROOT, env=env, stdout=logf,
+            stderr=subprocess.STDOUT), out, logf))
+    deadline = time.monotonic() + SHARD_CHILD_TIMEOUT_S
+    try:
+        for p, _, _ in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, _, logf in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            logf.close()
+    codes = [p.returncode for p, _, _ in procs]
+    if any(codes):
+        tails = [open(logf.name).read()[-2000:] for _, _, logf in procs]
+        raise SystemExit(f"phase 14 {tag}: rank exit codes {codes} (killed "
+                         f"after {SHARD_CHILD_TIMEOUT_S:.0f} s if negative)"
+                         f"\n" + "\n".join(tails))
+    results = []
+    for _, out, _ in procs:
+        with open(out) as f:
+            results.append(json.load(f))
+    return results
+
+
+def check_shard(tag: str, r: dict, ref_losses, n_ranks: int,
+                param_share=None, loss_rtol=SHARD_LOSS_RTOL,
+                grad_tol=None) -> float:
+    """A sharded run's checks: kernel 1 six times per iteration, the
+    replicas equal, the losses within `loss_rtol` (None: printed only),
+    the parameters within SHARD_PARAM_TOL on all but `param_share` of
+    the elements (None: printed only; see SHARD_LOSS_RTOL), and a
+    gradient within `grad_tol` (None: printed only) -> the max relative
+    loss difference."""
+    if r["launches"] != SCATTERS_PER_ITER * r["iters"]:
+        raise SystemExit(f"{tag}: kernel-1 launches {r['launches']} != "
+                         f"{SCATTERS_PER_ITER} x {r['iters']} iterations")
+    if r["replica_diff"] != 0.0:
+        raise SystemExit(f"{tag}: the ranks' maps differ by "
+                         f"{r['replica_diff']}")
+    if r["ranks"] != n_ranks:
+        raise SystemExit(f"{tag}: {r['ranks']} ranks, expected {n_ranks}")
+    rel = [abs(a - b) / max(abs(b), 1e-12)
+           for a, b in zip(r["losses"], ref_losses)]
+    if len(rel) != len(ref_losses):
+        raise SystemExit(f"{tag}: {len(r['losses'])} calls, expected "
+                         f"{len(ref_losses)}")
+    if loss_rtol is not None and rel and not max(rel) <= loss_rtol:
+        raise SystemExit(f"{tag}: losses {r['losses']} against {ref_losses}"
+                         f" (rtol {loss_rtol})")
+    lr = r.get("lr")
+    if param_share is not None and "max_param_diff" in r and not (
+            r["share_beyond"] <= param_share and r["max_param_diff"]
+            <= SHARD_PARAM_STEPS * r["iters"] * lr):
+        raise SystemExit(f"{tag}: {r['n_beyond']} parameter elements "
+                         f"({r['share_beyond']:.3e}) beyond "
+                         f"{SHARD_PARAM_TOL} (limit {param_share:g}), "
+                         f"the largest {r['max_param_diff']} (limit "
+                         f"{SHARD_PARAM_STEPS} x {r['iters']} x {lr})")
+    if (grad_tol is not None and "grad_rel_err" in r
+            and not r["grad_rel_err"] <= grad_tol):
+        raise SystemExit(f"{tag}: the gradient differs by "
+                         f"{r['grad_rel_err']} of its largest element "
+                         f"(limit {grad_tol})")
+    return max(rel) if rel else 0.0
+
+
+def plain_gradients(cfg, spec, save: str):
+    """The plain mapper's gradient of the first keyframe's first batch,
+    from the agent's seeds, saved to `save`."""
+    import torch
+
+    from mneslam_tpu_torch.device import make_generator
+    from mneslam_tpu_torch.mapping.mapper import Mapper
+    from mneslam_tpu_torch.models.scene_rep import SceneRep
+
+    scene = SceneRep(cfg, "cuda")
+    mapper = Mapper(cfg, scene, num_kf=spec["num_kf"],
+                    rays_per_kf=spec["rays_per_kf"])
+    state = mapper.init_state(make_generator(scene.device, 42))
+    gen = make_generator(scene.device, 1000)
+    state, frame, pose = first_keyframe(spec, mapper, state, gen, "cuda")
+    grads = mapper.gradients(state, frame, pose, gen)
+    torch.save([g.float().cpu() for g in grads], save)
+    return save
+
+
+def plain_reference(cfg, spec, schedule, save: str) -> dict:
+    """The plain (unsharded) mapper on `schedule` from the agent's seeds:
+    the same batches and uniforms the sharded runs draw -> losses and ms
+    per iteration per call, kernel-1 launches; the parameters after the
+    last call saved to `save`."""
+    import torch
+
+    from mneslam_tpu_torch.device import make_generator
+    from mneslam_tpu_torch.kernels.scatter_add_rows import scatter_add_rows
+    from mneslam_tpu_torch.mapping.mapper import Mapper
+    from mneslam_tpu_torch.models.scene_rep import SceneRep
+
+    scene = SceneRep(cfg, "cuda")
+    mapper = Mapper(cfg, scene, num_kf=spec["num_kf"],
+                    rays_per_kf=spec["rays_per_kf"])
+    state = mapper.init_state(make_generator(scene.device, 42))
+    gen = make_generator(scene.device, 1000)
+    reset_launches()
+    losses, ms = [], []
+    for fi, n in schedule:
+        frame = {key: torch.as_tensor(v, device="cuda")
+                 for key, v in spec["frames"][fi].items()}
+        pose = torch.as_tensor(spec["poses"][fi], device="cuda")
+        frame["frame_id"] = fi
+        state = mapper.add_keyframe(state, fi, frame, pose, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = mapper.optimize(state, frame, pose, gen, iters=n)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0) / n)
+        losses.append(float(met["loss"]))
+    torch.save(params_of(state), save)
+    return {"losses": losses, "ms_per_iter": ms, "save": save,
+            "launches": scatter_add_rows.launches,
+            "iters": sum(n for _, n in schedule)}
+
+
+def fleet_check(card) -> dict:
+    """14d: `MeshAgentFleet.run_mapping_only` for two agents at room0
+    widths on the first FLEET_FRAMES frames of 12c's segments, against
+    `MultiAgentRunner.run_mapping_only` on the same agents, which runs
+    twice: its distance from itself is the card's run-to-run spread."""
+    import copy
+
+    import torch
+
+    from mneslam_tpu_torch.agents.runner import MultiAgentRunner
+    from mneslam_tpu_torch.config import make_config
+    from mneslam_tpu_torch.configs import ROOM0
+    from mneslam_tpu_torch.data.synthetic import SyntheticBoxDataset
+    from mneslam_tpu_torch.parallel.fleet import MeshAgentFleet
+    from mneslam_tpu_torch.slam import MNESLAM
+
+    def config(exp):
+        cfg = make_config(copy.deepcopy(ROOM0))
+        cfg["dataset"] = "synthetic"
+        cfg["mode"] = "mapping"
+        cfg["data"].update(output=RUN_OUT, exp_name=exp)
+        cfg["mapping"].update(first_iters=FLEET_FIRST_ITERS,
+                              loop_iters=FLEET_LOOP_ITERS)
+        # the fleet reads a peer's live map where the runner reads its
+        # last published one, so a distillation differs by design
+        cfg["distillation"]["use_bound_overlap"] = False
+        return cfg
+
+    frames = FrameCache(SyntheticBoxDataset(config("x"),
+                                            num_frames=MA_FRAMES,
+                                            half=BOX_HALF))
+    segs = [(lo, lo + FLEET_FRAMES) for lo, _ in MA_SEGMENTS]
+
+    def agents(exp):
+        return [MNESLAM(config(exp), Slice(frames, lo, hi), rank=r,
+                        world_size=len(segs), device="cuda")
+                for r, (lo, hi) in enumerate(segs)]
+
+    t0 = time.perf_counter()
+    for lo, hi in segs:
+        for i in range(lo, hi):
+            frames[i]
+    render_s = time.perf_counter() - t0
+    seq = agents("fleet_seq")
+    t0 = time.perf_counter()
+    MultiAgentRunner(seq).run_mapping_only()
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    again = agents("fleet_seq_again")
+    MultiAgentRunner(again).run_mapping_only()
+    fl_agents = agents("fleet_mesh")
+    fleet = MeshAgentFleet(fl_agents)
+    reset_launches()
+    t0 = time.perf_counter()
+    fleet.run_mapping_only()
+    torch.cuda.synchronize()
+    fleet_s = time.perf_counter() - t0
+    launches = read_launches()
+    n_map = [len(a.mapped_timestamps) for a in fl_agents]
+    iters = sum(FLEET_FIRST_ITERS + (n - 1) * int(a.config["mapping"]
+                                                   ["iters"])
+                for a, n in zip(fl_agents, n_map))
+    def params_vs_runner(agents):
+        st = [param_stats(params_of(a.map_state), params_of(b.map_state))
+              for a, b in zip(agents, seq)]
+        return {"max_param_diff": max(x["max_param_diff"] for x in st),
+                "n_beyond": sum(x["n_beyond"] for x in st)}
+
+    db_keys = sorted((int(e["agent_id"]), int(e["kf_id"]))
+                     for e in fleet.comms.descriptors())
+    want = sorted((a.rank, int(t)) for a in fl_agents
+                  for t in a.mapped_timestamps)
+    def loss_rel(xs, ys):
+        return max(abs(float(mx["loss"]) - float(my["loss"]))
+                   / abs(float(my["loss"]))
+                   for x, y in zip(xs, ys)
+                   for mx, my in zip(x.metrics_log, y.metrics_log))
+
+    return {"mesh": fleet.mesh.shape, "mapped": n_map, "iters": iters,
+            "max_rel_loss_diff_vs_runner": loss_rel(fl_agents, seq),
+            "runner_vs_itself_rel_loss": loss_rel(again, seq),
+            "params_vs_runner": params_vs_runner(fl_agents),
+            "runner_vs_itself_params": params_vs_runner(again),
+            "descriptor_db": len(db_keys),
+            "descriptor_db_complete": db_keys == want,
+            "launches": launches["scatter_add_rows"],
+            "alignments": [c.alignments for c in fleet.collabs],
+            "render_frames_s": render_s, "runner_s": seq_s,
+            "fleet_s": fleet_s,
+            "fleet_ms_per_iter": 1e3 * fleet_s / iters,
+            "mapped_same": [a.mapped_timestamps for a in seq]
+            == [a.mapped_timestamps for a in fl_agents]}
+
+
+# 14c: `cli.main` under torchrun (`python -m torch.distributed.run
+# --standalone --nproc_per_node=CLI_RANKS`, each rank `chip_smoke.py
+# --cli-rank`, which calls `cli.main` and writes its launch counts): one
+# agent over a world of ranks on cuda:0 (gloo: NCCL refuses two ranks on
+# one GPU), rank 0 leading, the others following its map calls.
+# configs/Replica/room0_v5e8.yaml over the synthetic box room, keyframes
+# 0 and 5 of CLI_FRAMES frames, room0's first_iters 500 and iters 50 cut
+# to CLI_ITERS, terminate's mesh at CLI_MESH_RES m (room0's 0.02 cut); the
+# sync seam in fp32 (the yaml's gather_every 8 reads stale tables and its
+# bf16 sums round per rank: 14a-14b hold those), so the leader's
+# per-keyframe losses hold rtol 1e-4 against a one-process `cli.main` of
+# the same config, which maps with the plain mapper
+CLI_RANKS = 2
+CLI_FRAMES = 6
+CLI_ITERS = (3, 2)
+CLI_MESH_RES = 0.1
+# 14d: the fleet's SLAM path on phase 5's tiny config (oracle update)
+FLEET_SLAM_FRAMES = 16
+FLEET_SLAM_SEGMENTS = ((0, 10), (6, 16))
+
+
+def cli_rank_main(argv) -> int:
+    """A rank of 14c under torchrun (`chip_smoke.py --cli-rank PREFIX
+    ARGS...`): `cli.main(ARGS)`, then this rank's kernel launches to
+    PREFIX.rank<RANK>.json."""
+    sys.path.insert(0, ROOT)
+    from mneslam_tpu_torch import cli
+
+    prefix, args = argv[0], argv[1:]
+    result = cli.main(args)
+    with open(f"{prefix}.rank{os.environ['RANK']}.json", "w") as f:
+        json.dump({"launches": read_launches(),
+                   "keyframes": None if result is None
+                   else result["keyframes"]}, f)
+    return 0
+
+
+def metric_losses(agent_dir: str) -> list:
+    """The per-keyframe losses of an agent's metrics.jsonl."""
+    with open(os.path.join(agent_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    return [r["loss"] for r in rows
+            if r.get("kind") == "metric" and "loss" in r]
+
+
+def cli_world_check() -> dict:
+    """14c: the one-process `cli.main` (no world: the plain mapper), then
+    the same config under torchrun on CLI_RANKS ranks -> the numbers
+    printed. Raises SystemExit on a failed check."""
+    import shutil
+    import signal
+
+    import torch
+    import yaml
+
+    from mneslam_tpu_torch import cli
+
+    out_dir = os.path.join(RUN_OUT, "cli_world")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    path = os.path.join(out_dir, "world.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump({
+            "inherit_from": "configs/Replica/room0_v5e8.yaml",
+            "dataset": "synthetic", "mode": "mapping",
+            "data": {"num_frames": CLI_FRAMES, "exp_name": "world"},
+            "mapping": {"first_iters": CLI_ITERS[0],
+                        "iters": CLI_ITERS[1], "shard_gather_every": 1},
+            "training": {"render_dtype": "float32"},
+            "meshing": {"resolution": CLI_MESH_RES}}, f)
+    one, world = os.path.join(out_dir, "one"), os.path.join(out_dir, "world")
+    cwd = os.getcwd()
+    os.chdir(ROOT)      # the configs' inherit_from paths are relative
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        ref = cli.main(["--config", path, "--output", one])
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        one_launches = read_launches()["scatter_add_rows"]
+    finally:
+        os.chdir(cwd)
+    prefix = os.path.join(out_dir, "counts")
+    log_path = os.path.join(OUT, "cli_world.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as logf:
+        p = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             f"--nproc_per_node={CLI_RANKS}",
+             os.path.join(ROOT, "chip_smoke.py"), "--cli-rank", prefix,
+             "--config", path, "--output", world],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), stdout=logf,
+            stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            code = p.wait(timeout=SHARD_CHILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+            code = f"killed after {SHARD_CHILD_TIMEOUT_S:.0f} s"
+    world_s = time.perf_counter() - t0
+    with open(log_path) as f:
+        text = f.read()
+    if code != 0:
+        raise SystemExit(f"14c torchrun cli.main: exit {code}\n"
+                         f"{text[-3000:]}")
+    counts = []
+    for r in range(CLI_RANKS):
+        with open(f"{prefix}.rank{r}.json") as f:
+            counts.append(json.load(f))
+    kf = counts[0]["keyframes"]
+    iters = CLI_ITERS[0] + (kf - 1) * CLI_ITERS[1]
+    leader = os.path.join(world, "world", "agent_0")
+    losses = metric_losses(leader)
+    ref_losses = metric_losses(os.path.join(one, "world", "agent_0"))
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    worlds = [f"[rank {r}] world of {CLI_RANKS} ranks: backend gloo, "
+              f"transport host, device cuda:0" for r in range(CLI_RANKS)]
+    files = {name: os.path.exists(os.path.join(leader, name))
+             for name in ("metrics.jsonl", "final_checkpoint.npz",
+                          "mesh/final_mesh.ply")}
+    res = {"world_s": world_s, "one_process_s": one_s, "keyframes": kf,
+           "iters": iters, "losses": losses, "one_process_losses":
+           ref_losses, "max_rel_loss_diff": max(rel) if rel else None,
+           "launches_by_rank": [c["launches"]["scatter_add_rows"]
+                                for c in counts],
+           "one_process_launches": one_launches, "files": files,
+           "followers_return": [c["keyframes"] for c in counts[1:]]}
+    problems = [msg for msg, ok in (
+        ("a rank did not start the world init_world prints (gloo, host, "
+         "cuda:0)", all(w in text for w in worlds)),
+        (f"{kf} keyframes (one process: {ref['keyframes']}), expected 2",
+         kf == ref["keyframes"] == 2),
+        ("a leader's output is missing", all(files.values())),
+        (f"losses {losses} against one process's {ref_losses} (rtol "
+         f"{SHARD_LOSS_RTOL})", len(losses) == kf == len(ref_losses)
+         and max(rel) <= SHARD_LOSS_RTOL),
+        (f"kernel-1 launches by rank {res['launches_by_rank']}, one "
+         f"process {one_launches}: expected {SCATTERS_PER_ITER} x {iters}",
+         all(n == SCATTERS_PER_ITER * iters
+             for n in res["launches_by_rank"] + [one_launches])),
+        ("a follower returned a result", all(
+            k is None for k in res["followers_return"])))
+        if not ok]
+    if problems:
+        raise SystemExit(f"14c torchrun cli.main: {problems}\n"
+                         f"{text[-2000:]}")
+    return res
+
+
+def fleet_slam_check() -> dict:
+    """14d: `MeshAgentFleet.run_slam` for two agents on phase 5's tiny
+    config with the oracle update -> the numbers printed. Raises
+    SystemExit unless kernel 2 ran once per lookup, kernel 1 six times
+    per mapping iteration, and both agents' outputs are written and
+    finite."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from mneslam_tpu_torch.data.synthetic import SyntheticBoxDataset
+    from mneslam_tpu_torch.parallel.fleet import MeshAgentFleet
+    from mneslam_tpu_torch.tools.validate_dataset import OracleMNESLAM
+
+    cfg = tiny_slam_config(os.path.join(RUN_OUT, "fleet_slam"),
+                           exp_name="fleet_slam")
+    cfg["distillation"]["use_bound_overlap"] = False
+    frames = FrameCache(SyntheticBoxDataset(cfg,
+                                            num_frames=FLEET_SLAM_FRAMES))
+    agents = [OracleMNESLAM(copy.deepcopy(cfg), Slice(frames, lo, hi),
+                            rank=r, world_size=len(FLEET_SLAM_SEGMENTS),
+                            device="cuda")
+              for r, (lo, hi) in enumerate(FLEET_SLAM_SEGMENTS)]
+    fleet = MeshAgentFleet(agents)
+    reset_launches()
+    t0 = time.perf_counter()
+    res = fleet.run_slam()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = read_launches()
+    mp = cfg["mapping"]
+    iters = sum(int(mp["first_iters"]) + (a.map_counter - 1)
+                * int(mp["iters"]) for a in agents)
+    n_look = sum(lookups(a) for a in agents)
+    est = [np.load(os.path.join(a.out_dir, "est_poses.npy")) for a in agents]
+    out = {"seconds": sec, "keyframes": [a.tracker.counter for a in agents],
+           "mapped": [a.map_counter for a in agents], "iters": iters,
+           "lookups": n_look, "launches": launches,
+           "ate_rmse": [r["ate"]["rmse"] for r in res]}
+    problems = [msg for msg, ok in (
+        (f"kernel 2 launches {launches['corr_window']} != {n_look} lookups",
+         launches["corr_window"] == n_look >= 1),
+        ("kernel 2b or 3 launched", not (launches["corr_window_mma"]
+                                         or launches[
+                                             "corr_window_per_level"])),
+        (f"kernel-1 launches {launches['scatter_add_rows']} != "
+         f"{SCATTERS_PER_ITER} x {iters}",
+         launches["scatter_add_rows"] == SCATTERS_PER_ITER * iters),
+        ("an agent mapped fewer than two keyframes",
+         all(a.map_counter >= 2 for a in agents)),
+        ("non-finite trajectory", all(np.isfinite(e).all() for e in est)
+         and all(math.isfinite(r["ate"]["rmse"]) for r in res)))
+        if not ok]
+    if problems:
+        raise SystemExit(f"14d fleet SLAM: {problems}: {out}")
+    return out
+
+
+def device_mesh_cli() -> tuple:
+    """14d: `python -m mneslam_tpu_torch.cli --device_mesh --num_agents 2`
+    on phase 3's tiny config, on the card -> (exit code, seconds, missing
+    outputs, the log's tail)."""
+    import yaml
+
+    out_dir = os.path.join(RUN_OUT, "device_mesh")
+    cfg = tiny_config(out_dir)
+    cfg["dataset"] = "synthetic"
+    cfg["data"].update(exp_name="fleet", num_frames=6)
+    cfg["mapping"].update(loop_iters=20, distill_iters=20)
+    cfg["meshing"]["resolution"] = 0.25
+    cfg["loop_detection"].update(enabled=True, sim_threshold=0.95,
+                                 min_time_diff=100, loop_launch_th=2)
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "tiny.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "mneslam_tpu_torch.cli",
+                        "--config", path, "--num_agents", "2",
+                        "--device_mesh"], capture_output=True, text=True,
+                       cwd=ROOT, env=env, timeout=300)
+    sec = time.perf_counter() - t0
+    missing = [f"agent_{rank}/{name}" for rank in (0, 1)
+               for name in ("metrics.jsonl", "final_checkpoint.npz")
+               if not os.path.exists(os.path.join(out_dir, "fleet",
+                                                  f"agent_{rank}", name))]
+    return r.returncode, sec, missing, (r.stdout[-1500:], r.stderr[-1500:])
+
+
+def shard_phase(card) -> dict:
+    """Phase 14 -> kernel-1 launches by path and the numbers printed.
+    Raises SystemExit on a failed check."""
+    import numpy as np
+    import torch
+
+    from mneslam_tpu_torch.data.synthetic import SyntheticBoxDataset
+
+    t14 = time.perf_counter()
+    os.makedirs(RUN_OUT, exist_ok=True)
+    cfg = shard_config()
+    keys = {k: cfg["mapping"][k] for k in ("shard_plane_rows",
+                                           "shard_gather_every")}
+    log(f"phase 14 (row-sharded mapper and mesh fleet): "
+        f"configs/Replica/room0_v5e8.yaml's keys {json.dumps(keys)}, "
+        f"render_dtype {cfg['training']['render_dtype']}, c_dim "
+        f"{cfg['model']['c_dim']}, {cfg['mapping']['sample']} + "
+        f"{cfg['mapping']['min_pixels_cur']} rays x "
+        f"{cfg['training']['n_range_d'] + cfg['training']['n_samples_d']} "
+        f"samples; map calls (frame, iterations) {list(SHARD_SCHEDULE)}: "
+        f"room0's first_iters {cfg['mapping']['first_iters']} and iters "
+        f"{cfg['mapping']['iters']} cut to 20 and 10")
+    # the frames rendered once, here, and handed to the ranks in a file
+    t0 = time.perf_counter()
+    ds = SyntheticBoxDataset(cfg, num_frames=11, half=BOX_HALF)
+    fids = sorted({fi for fi, _ in SHARD_SCHEDULE})
+    items = {fi: ds[fi] for fi in fids}
+    spec = {"num_kf": len(SHARD_SCHEDULE) + 1,
+            "rays_per_kf": ds.num_rays_to_save,
+            "frames": {fi: {k: np.asarray(items[fi][k], np.float32)
+                            for k in ("direction", "rgb", "depth")}
+                       for fi in fids},
+            "poses": {fi: np.asarray(items[fi]["c2w"], np.float32)
+                      for fi in fids}}
+    render_s = time.perf_counter() - t0
+
+    cfg32 = {**cfg, "training": {**cfg["training"],
+                                 "render_dtype": "float32"}}
+    ref = os.path.join(RUN_OUT, "shard_{}.pt").format
+    plain = plain_reference(cfg, spec, SHARD_SCHEDULE, ref("plain_bf16"))
+    plain32 = plain_reference(cfg32, spec, SHARD_B_SCHEDULE,
+                              ref("plain_fp32_b"))
+    # controls: the plain mapper against itself (the card's run-to-run
+    # spread), in fp32 on 14b's schedule and for one bf16 gradient
+    again32 = plain_reference(cfg32, spec, SHARD_B_SCHEDULE,
+                              ref("plain_fp32_b_again"))
+    plain_self = param_stats(torch.load(again32["save"]),
+                             torch.load(plain32["save"]))
+    plain_self["max_rel_loss_diff"] = max(
+        abs(a - b) / abs(b) for a, b in zip(again32["losses"],
+                                            plain32["losses"]))
+    g32 = plain_gradients(cfg32, spec, ref("grads_fp32"))
+    g16 = plain_gradients(cfg, spec, ref("grads_bf16"))
+    g16_self = grad_rel_err(
+        torch.load(plain_gradients(cfg, spec, ref("grads_bf16_again"))),
+        torch.load(g16))
+    log(f"14 plain mapper (reference, bf16): losses {plain['losses']}, ms "
+        f"per iteration by call "
+        f"{[round(v, 3) for v in plain['ms_per_iter']]}, kernel-1 launches "
+        f"{plain['launches']} for {plain['iters']} iterations; frames "
+        f"rendered in {render_s:.2f} s; 14b's reference on "
+        f"{list(SHARD_B_SCHEDULE)} (14b's cut), fp32: losses "
+        f"{plain32['losses']}; controls, the plain mapper against itself: "
+        f"fp32 on 14b's schedule {json.dumps(plain_self)}, one bf16 "
+        f"gradient {g16_self:.3e} of the largest element per leaf")
+
+    def run(c, schedule, ge, fold="after", save=None, ref=None):
+        c = {**c, "mapping": {**c["mapping"], "shard_gather_every": ge,
+                              "shard_fold": fold}}
+        return {"config": c, "schedule": schedule, "save": save, "ref": ref}
+
+    steps = {"references": time.perf_counter() - t14}
+    ge8_path = ref("1rank_ge8_fp32")
+    # 14a: one rank over NCCL: the sync seam in bf16 on the whole
+    # schedule; on 14b's schedule in fp32 the sync seam (a control) and
+    # gather_every 8 (14b's reference); one bf16 gradient (a control)
+    a_spec = dict(spec, runs=[
+        dict(run(cfg, SHARD_SCHEDULE, 1, ref=plain["save"]),
+             profile=os.path.join(OUT, "shard14a_profile.txt")),
+        run(cfg32, SHARD_B_SCHEDULE, 8, save=ge8_path),
+        run(cfg32, SHARD_B_SCHEDULE, 1, ref=plain32["save"]),
+        dict(run(cfg, (), 1), grads=g16)])
+    (a_sync, a_ge8, a_sync32, a_g16), = spawn_ranks("shard14a", a_spec, 1,
+                                                     "nccl")
+    steps["14a"] = time.perf_counter() - t14 - sum(steps.values())
+    a_rel = check_shard("14a (1 rank, NCCL)", a_sync, plain["losses"], 1,
+                        param_share=0.0)
+    if a_sync["transport"] != "device":
+        raise SystemExit(f"14a: transport {a_sync['transport']}")
+    check_shard("14a gather_every 8 (fp32)", a_ge8, a_ge8["losses"], 1)
+    check_shard("14a sync seam (fp32, 14b's schedule)", a_sync32,
+                plain32["losses"], 1, param_share=0.0)
+    check_shard("14a gradient (bf16)", a_g16, [], 1,
+                grad_tol=SHARD_GRAD_TOL_BF16)
+    log(f"14a one rank over NCCL (transport {a_sync['transport']}), bf16: "
+        f"losses {a_sync['losses']}, max rel loss diff vs plain "
+        f"{a_rel:.3e} (rtol {SHARD_LOSS_RTOL}), parameters "
+        f"{a_sync['max_param_diff']:.3e} from the plain mapper's, "
+        f"{a_sync['n_beyond']} elements beyond {SHARD_PARAM_TOL}; "
+        f"kernel-1 launches "
+        f"{a_sync['launches']} = {SCATTERS_PER_ITER} x {a_sync['iters']}; "
+        f"ms per iteration by call "
+        f"{[round(v, 3) for v in a_sync['ms_per_iter']]} (plain "
+        f"{[round(v, 3) for v in plain['ms_per_iter']]}) on {card}; "
+        f"gather_every 8 on one rank (fp32, 14b's reference): losses "
+        f"{a_ge8['losses']}; controls on one rank: the sync seam in fp32 "
+        f"on 14b's schedule against the plain mapper: losses "
+        f"{a_sync32['losses']}, parameters {a_sync32['max_param_diff']:.3e}"
+        f", {a_sync32['n_beyond']} elements beyond; one bf16 gradient "
+        f"{a_g16['grad_rel_err']:.3e} of the largest element per leaf "
+        f"(limit {SHARD_GRAD_TOL_BF16}); profile of 3 more iterations: "
+        f"{json.dumps(a_sync['profile'])} (table in "
+        f"{os.path.join(OUT, 'shard14a_profile.txt')})")
+
+    # 14b's runs, SHARD_RANKS ranks on cuda:0 over gloo, in turn: one
+    # batch's gradient (fp32 both fold orders, bf16), then the optimize
+    # (fp32: the sync seam, gather_every 8, fold before)
+    G = SHARD_GRAD_TOL
+    b_runs = (("gradient, fold after (fp32)",
+               dict(run(cfg32, (), 1), grads=g32), [], G),
+              ("gradient, fold before (fp32)",
+               dict(run(cfg32, (), 1, fold="before"), grads=g32), [], G),
+              ("gradient, fold after (bf16)",
+               dict(run(cfg, (), 1), grads=g16), [], SHARD_GRAD_TOL_BF16),
+              ("optimize, gather_every 1, fold after (fp32)",
+               dict(run(cfg32, SHARD_B_SCHEDULE, 1, ref=plain32["save"]),
+                    g1=g32), plain32["losses"], None),
+              ("optimize, gather_every 8 (fp32)",
+               dict(run(cfg32, SHARD_B_SCHEDULE, 8, ref=ge8_path), g1=g32),
+               a_ge8["losses"], None),
+              ("optimize, fold before (fp32)",
+               dict(run(cfg32, SHARD_B_SCHEDULE, 1, fold="before",
+                        ref=plain32["save"]), g1=g32),
+               plain32["losses"], None))
+    # 14d's runs in this process first, on a quiet card (they are
+    # timed): the fleet, mapping-only against the runner, and SLAM
+    log(f"14d mesh fleet: two agents at room0 widths on frames "
+        f"{MA_SEGMENTS[0][0]}-{MA_SEGMENTS[0][0] + FLEET_FRAMES - 1} and "
+        f"{MA_SEGMENTS[1][0]}-{MA_SEGMENTS[1][0] + FLEET_FRAMES - 1} of "
+        f"12c's trajectory, first_iters cut to {FLEET_FIRST_ITERS}, "
+        f"loop_iters to {FLEET_LOOP_ITERS}, fusion off")
+    fl = fleet_check(card)
+    log(f"14d fleet vs runner: {json.dumps(fl)} on {card}")
+    problems = [msg for msg, ok in (
+        (f"losses beyond rtol {SHARD_LOSS_RTOL} of the runner's",
+         fl["max_rel_loss_diff_vs_runner"] <= SHARD_LOSS_RTOL),
+        ("the fleet and the runner mapped different keyframes",
+         fl["mapped_same"]),
+        ("the descriptor DB misses keyframes", fl["descriptor_db_complete"]),
+        (f"kernel-1 launches {fl['launches']} != {SCATTERS_PER_ITER} x "
+         f"{fl['iters']}", fl["launches"] == SCATTERS_PER_ITER * fl["iters"]))
+        if not ok]
+    if problems:
+        raise SystemExit(f"14d fleet: {problems}")
+    fs = fleet_slam_check()
+    log(f"14d fleet SLAM (phase 5's tiny config, oracle update, two agents "
+        f"on frames {FLEET_SLAM_SEGMENTS} of {FLEET_SLAM_FRAMES}): "
+        f"{json.dumps(fs)}")
+    steps["14d in process"] = time.perf_counter() - t14 - sum(
+        steps.values())
+
+    # then the child processes of 14b, 14c and 14d's CLI, all at once
+    # (their times are no speeds: gloo through host memory, process
+    # starts); a failed job raises here once every job has ended
+    torch.cuda.empty_cache()
+    b_spec = dict(spec, runs=[r for _, r, _, _ in b_runs])
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        jobs = [pool.submit(spawn_ranks, "shard14b", b_spec, SHARD_RANKS,
+                            "gloo"),
+                pool.submit(cli_world_check), pool.submit(device_mesh_cli)]
+        b, cw, (code, cli_s, missing, tail) = [j.result() for j in jobs]
+    steps["14b, 14c, 14d cli"] = time.perf_counter() - t14 - sum(
+        steps.values())
+    b_out = {}
+    for j, (name, _, ref_losses, gtol) in enumerate(b_runs):
+        rels = [check_shard(f"14b {name} rank {k}", ranks[j], ref_losses,
+                            SHARD_RANKS, param_share=SHARD_PARAM_SHARE,
+                            grad_tol=gtol)
+                for k, ranks in enumerate(b)]
+        r0 = b[0][j]
+        if r0["transport"] != "host":
+            raise SystemExit(f"14b: transport {r0['transport']}")
+        out = {"launches_by_rank": [ranks[j]["launches"] for ranks in b],
+               "iters": r0["iters"]}
+        if "grad_rel_err" in r0:
+            out.update(grad_rel_err=r0["grad_rel_err"], grad_tol=gtol)
+            what = (f"gradient error {r0['grad_rel_err']:.3e} of the "
+                    f"largest element per leaf (limit {gtol})")
+        else:
+            out.update(
+                losses=r0["losses"], reference_losses=ref_losses,
+                max_rel_loss_diff=max(rels),
+                **{k: r0[k] for k in (
+                    "max_param_diff", "n_beyond", "share_beyond",
+                    "beyond_untouched_by_first_batch",
+                    "beyond_at_block_edge")},
+                ms_per_iter_by_rank=[[round(v, 1) for v in
+                                      ranks[j]["ms_per_iter"]]
+                                     for ranks in b])
+            what = (f"losses {r0['losses']} (reference {ref_losses}), max "
+                    f"rel loss diff {max(rels):.3e} (rtol "
+                    f"{SHARD_LOSS_RTOL}); parameters "
+                    f"{r0['max_param_diff']:.3e} from the reference's, "
+                    f"{r0['n_beyond']} elements ({r0['share_beyond']:.3e}) "
+                    f"beyond {SHARD_PARAM_TOL} (limit {SHARD_PARAM_SHARE:g}"
+                    f", see SHARD_LOSS_RTOL), of them untouched by the "
+                    f"first batch {r0['beyond_untouched_by_first_batch']}, "
+                    f"on a block's first or last y-row "
+                    f"{r0['beyond_at_block_edge']}; ms per iteration by "
+                    f"rank and call "
+                    f"{out['ms_per_iter_by_rank']} (gloo through host "
+                    f"memory on one card: not a collective's speed)")
+        b_out[name] = out
+        log(f"14b {SHARD_RANKS} ranks on cuda:0 over gloo, {name}: {what}; "
+            f"kernel-1 launches by rank {out['launches_by_rank']} = "
+            f"{SCATTERS_PER_ITER} x {r0['iters']} each")
+
+    # 14c: cli.main under torchrun, a world of CLI_RANKS ranks
+    log(f"14c torchrun --nproc_per_node={CLI_RANKS} -m mneslam_tpu_torch."
+        f"cli (cli.main on each rank, beside 14b and 14d's CLI): "
+        f"{json.dumps(cw)} on {card}")
+    log(f"14d cli --device_mesh --num_agents 2 (tiny config, on the card): "
+        f"exit {code} in {cli_s:.1f} s (beside 14b and 14c); missing "
+        f"outputs {missing}")
+    if code != 0 or missing:
+        raise SystemExit(f"14d cli --device_mesh failed: exit {code}, "
+                         f"missing {missing}\n{tail[0]}\n{tail[1]}")
+    t14 = time.perf_counter() - t14
+    log(f"phase 14 {t14:.1f} s of its budget of {SHARD_BUDGET_S:.0f} s"
+        + (": OVER BUDGET, cut its iterations or frames"
+           if t14 > SHARD_BUDGET_S else "")
+        + f"; s by step "
+        f"{json.dumps({k: round(v, 1) for k, v in steps.items()})}")
+    return {"seconds": t14, "steps": steps, "plain": plain,
+            "plain32": plain32,
+            "plain_self": plain_self, "a": a_sync, "a_ge8": a_ge8,
+            "a_sync32": a_sync32, "b": b_out, "cli_world": cw, "fleet": fl,
+            "fleet_slam": fs, "cli_s": cli_s,
+            "launches": {"row_sharded_1rank_nccl": a_sync["launches"]
+                         + a_ge8["launches"] + a_sync32["launches"]
+                         + a_g16["launches"],
+                         "row_sharded_4ranks_gloo_by_rank": [
+                             sum(r["launches"] for r in ranks)
+                             for ranks in b],
+                         "row_sharded_cli_world_by_rank":
+                             cw["launches_by_rank"],
+                         "cli_one_process": cw["one_process_launches"],
+                         "mesh_fleet": fl["launches"],
+                         "mesh_fleet_slam": fs["launches"][
+                             "scatter_add_rows"],
+                         "plain_references": plain["launches"]
+                         + plain32["launches"] + again32["launches"]},
+            "corr_launches": {"mesh_fleet_slam":
+                              fs["launches"]["corr_window"]}}
+
+
 def main():
     import numpy as np
     import torch
@@ -2895,6 +3948,10 @@ def main():
     tum, fast = files["tum"], files["fast"]
     corr["corr_window"]["tum_frontend"] = tum["corr"]
 
+    # 14. the row-sharded mapper (1 rank over NCCL, 4 ranks over gloo) and
+    #     the mesh fleet
+    shard = shard_phase(card)
+
     kernels = [{
         "name": "scatter_add_rows",
         "route": "cuda",
@@ -2910,7 +3967,8 @@ def main():
                                  cp["distill_launches"],
                              "tum_files": tum["launches"]["scatter_add_rows"],
                              "mapping_bf16":
-                                 fast["launches"]["scatter_add_rows_bf16"]},
+                                 fast["launches"]["scatter_add_rows_bf16"],
+                             **shard["launches"]},
         "bf16": {**fast["kernel1_bf16"],
                  "route": "workspace: accumulate + emit",
                  "launches": fast["launches"]["scatter_add_rows_bf16"],
@@ -2945,7 +4003,8 @@ def main():
         {"slam": slaunches["corr_window"],
          "oracle_backend": b_launches["corr_window"], "mapping": 0,
          "multiagent": ma_launches["corr_window"],
-         "tum_files": tum["launches"]["corr_window"]},
+         "tum_files": tum["launches"]["corr_window"],
+         **shard["corr_launches"]},
         CORR_RTOL, **probes["corr_window"],
         probe_launches=probe_launches["corr_window"],
         frontend_update_ms=upd_ms, frontend_update_device_ms=upd_dev_ms,
@@ -2997,4 +4056,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--shard-rank"]:
+        sys.exit(shard_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--cli-rank"]:
+        sys.exit(cli_rank_main(sys.argv[2:]))
     sys.exit(main())

@@ -19,9 +19,21 @@ With N > 1 agents (`--num_agents`, alias `--num_gpus`) each agent reads
 in one process on one device, exchanging through memory; `--file_comms`
 exchanges through the on-disk protocol under `<output>/<exp_name>/`
 instead, and `--spawn` runs each agent as its own OS process over that
-protocol (each child gets the parent's `--device`). Port of
-`mneslam_tpu/cli.py`; the device-mesh fleet (`--device_mesh`) is not
-ported yet.
+protocol (each child gets the parent's `--device`).
+
+`--device_mesh` runs the agents as one mesh fleet
+(`parallel/fleet.MeshAgentFleet`): on one device every agent sits in one
+slice, and each round maps every agent's pending keyframe in one
+super-step. A fleet over several ranks (agents x row groups) is not
+ported: it raises.
+
+Under `torchrun --nproc_per_node=N` (WORLD_SIZE > 1) the ranks form one
+world (`parallel/mesh.init_world`: NCCL with cuda:LOCAL_RANK when every
+rank has a GPU of its own, gloo for `--device cpu` or for more ranks than
+GPUs; the choice is printed) and run one agent whose mapper is row-sharded
+over every rank (`mapping.shard_plane_rows` must be set): rank 0 leads the
+run and writes every output, the other ranks follow its map calls. One
+process starts no world. Port of `mneslam_tpu/cli.py`.
 """
 
 from __future__ import annotations
@@ -63,6 +75,57 @@ def _spawn_processes(args):
     return codes
 
 
+def _load_config(args, path):
+    from .config import default_config, deep_update, load_config
+
+    cfg = deep_update(default_config(), load_config(path))
+    if args.output:
+        cfg["data"]["output"] = args.output
+    if args.mode is not None:
+        cfg["mode"] = args.mode
+    return cfg
+
+
+def _row_sharded_world(args, rank: int, device: str):
+    """One agent over a world of ranks: rank 0 runs it with the
+    row-sharded mapper, the others follow its map calls -> rank 0's
+    result (None on a follower)."""
+    from .agents.runner import MultiAgentRunner
+    from .data.datasets import get_dataset
+    from .parallel.fleet import require_one_slice
+    from .slam import MNESLAM
+
+    if args.device_mesh:
+        require_one_slice()
+    if args.num_agents > 1 or args.spawn or args.file_comms:
+        raise NotImplementedError(
+            "several agents over a world of ranks (the composed agent x "
+            "rows fleet) are not ported: ROADMAP.md Queue 1 item 4b")
+    cfg = _load_config(args, args.config)
+    if not bool(cfg["mapping"].get("shard_plane_rows", False)):
+        raise ValueError("a world of several ranks runs the row-sharded "
+                         "mapper: set mapping.shard_plane_rows")
+    # the agent's rank is 0 on every process: its generators are seeded
+    # by it, never by the process's rank
+    agent = MNESLAM(cfg, get_dataset(cfg), rank=0, device=device)
+    if args.resume:
+        agent.load_full_state(args.resume)
+    if agent.follower:
+        agent.follow()
+        return None
+    try:
+        runner = MultiAgentRunner([agent])
+        if agent.mode == "mapping":
+            runner.run_mapping_only()
+            result = agent.terminate()
+        else:
+            result = runner.run_slam()[0]
+    finally:
+        agent.release_followers()
+    print(f"agent 0 (rank {rank} of a row-sharded world): {result}")
+    return result
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="MNESLAM multi-agent SLAM (PyTorch/CUDA port)")
@@ -83,21 +146,29 @@ def main(argv=None):
     ap.add_argument("--spawn_rank", type=int, default=None,
                     help=argparse.SUPPRESS)  # a spawned child's rank
     ap.add_argument("--device_mesh", action="store_true",
-                    help="agents as device-mesh slices (not ported)")
+                    help="run the agents as a mesh fleet: one mapping "
+                         "super-step per round")
     ap.add_argument("--resume", default=None,
                     help="full-state checkpoint to restore before running")
     args = ap.parse_args(argv)
 
-    if args.device_mesh:
-        raise NotImplementedError(
-            "--device_mesh (the mesh agent fleet, parallel/fleet.py) is not "
-            "ported yet: ROADMAP.md Queue 1 item 4")
+    import torch.distributed as dist
+
+    from .parallel.mesh import init_world
+
+    started_here = not dist.is_initialized()
+    rank, world, device = init_world(args.device)
+    if world > 1:
+        try:
+            return _row_sharded_world(args, rank, device)
+        finally:
+            if started_here:
+                dist.destroy_process_group()
     if args.spawn and args.num_agents > 1 and args.spawn_rank is None:
         return _spawn_processes(args)
 
     from .agents.comms import FileComms, InMemoryComms
     from .agents.runner import MultiAgentRunner
-    from .config import default_config, deep_update, load_config
     from .data.datasets import get_dataset
     from .slam import MNESLAM
 
@@ -107,17 +178,26 @@ def main(argv=None):
     for rank in ranks:
         path = (derive_agent_config(args.config, rank)
                 if args.num_agents > 1 else args.config)
-        cfg = deep_update(default_config(), load_config(path))
-        if args.output:
-            cfg["data"]["output"] = args.output
-        if args.mode is not None:
-            cfg["mode"] = args.mode
+        cfg = _load_config(args, path)
         agent = MNESLAM(cfg, get_dataset(cfg), rank=rank, device=args.device,
                         world_size=args.num_agents)
         if args.resume:
             agent.load_full_state(args.resume if args.num_agents == 1
                                   else f"{args.resume}.agent{rank}")
         agents.append(agent)
+
+    if args.device_mesh:
+        from .parallel.fleet import MeshAgentFleet
+
+        fleet = MeshAgentFleet(agents)
+        if agents[0].mode == "mapping":
+            fleet.run_mapping_only()
+            results = [a.terminate() for a in agents]
+        else:
+            results = fleet.run_slam()
+        for rank, r in zip(ranks, results):
+            print(f"agent {rank}: {r}")
+        return results[0] if args.num_agents == 1 else results
 
     if args.file_comms or args.spawn_rank is not None:
         cfg = agents[0].config

@@ -65,6 +65,12 @@ _DEFAULTS: Dict[str, Any] = {
         "optim_cur": True,
         "min_pixels_cur": 100,
         "filter_depth": False,
+        # the row-sharded mapper (parallel/mesh.py; used on a world of
+        # more than one rank): fold placement in the backward, "after" or
+        # "before", and one pack + all-gather per k iterations
+        "shard_plane_rows": False,
+        "shard_fold": "after",
+        "shard_gather_every": 1,
         "w_sdf_fs": 5,
         "w_sdf_center": 200,
         "w_sdf_tail": 30,

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..ops import encodings, interp
+from ..parallel.mesh import all_reduce_sum
 from . import decoder as decoder_lib
 from .droid_net import cast_params
 
@@ -154,17 +155,25 @@ class SceneRep:
                              tables: Optional[Dict] = None) -> list:
         """Per-level feature blocks [N, C]: xy + xz + yz samples of that
         level (ESLAM's summation). `tables`: the planes already packed
-        (`query_tables`; forward only)."""
+        (`query_tables`; forward only). A plane given as an
+        `interp.PackedPlane` is sampled from its table."""
         uv = {"xy": p_nor[:, [0, 1]], "xz": p_nor[:, [0, 2]],
               "yz": p_nor[:, [1, 2]]}
+        def sample(name, lvl):
+            pl = planes[name][lvl]
+            if isinstance(pl, interp.PackedPlane):
+                # the row-sharded mapper's seam: the table is the leaf
+                return interp.sample_packed_table(pl.packed, uv[name],
+                                                  *pl.shape[1:])
+            if tables is not None:
+                return interp.sample_packed_table(tables[name][lvl],
+                                                  uv[name], *pl.shape[1:])
+            return interp.sample_plane_packed(pl, uv[name])
+
         feats = []
         for lvl in range(len(planes["xy"])):
-            xy, xz, yz = (
-                interp.sample_plane_packed(planes[name][lvl], uv[name])
-                if tables is None else interp.sample_packed_table(
-                    tables[name][lvl], uv[name], *planes[name][lvl].shape[1:])
-                for name in ("xy", "xz", "yz"))
-            feats.append(xy + xz + yz)
+            feats.append(sample("xy", lvl) + sample("xz", lvl)
+                         + sample("yz", lvl))
         return feats
 
     def query_color_sdf(self, params: Dict, pts: torch.Tensor,
@@ -256,12 +265,14 @@ class SceneRep:
 
     def sample_z_vals(self, target_d: torch.Tensor, n_rays: int,
                       generator: Optional[torch.Generator] = None,
-                      u: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      u: Optional[torch.Tensor] = None,
+                      rng_block=None) -> torch.Tensor:
         """Depth-guided stratified sampling: n_range_d samples in
         [d - range_d, d + range_d] (rays without depth fall back to
         [near, far]) plus n_samples_d uniform samples, sorted; then a
         per-bin perturbation when `training.perturb` is set and either
-        pre-drawn uniforms `u` [n_rays, S] or a generator is given."""
+        pre-drawn uniforms `u` or a generator is given (see
+        `_perturb` for `rng_block`)."""
         dev = target_d.device
         t = target_d.reshape(n_rays, 1)
         z_around = _linspace(-self.range_d, self.range_d, self.n_range_d,
@@ -276,40 +287,53 @@ class SceneRep:
                                 dim=-1).values
         else:
             z_vals = z_samples
-        return self._perturb(z_vals, generator, u)
+        return self._perturb(z_vals, generator, u, rng_block)
 
     def _perturb(self, z_vals: torch.Tensor,
                  generator: Optional[torch.Generator],
-                 u: Optional[torch.Tensor]) -> torch.Tensor:
+                 u: Optional[torch.Tensor], rng_block=None) -> torch.Tensor:
         """Each sample moved uniformly within its bin (between the mids
         of its neighbours) when `training.perturb` is set and either
-        pre-drawn uniforms `u` or a generator is given."""
+        pre-drawn uniforms `u` or a generator is given.
+
+        `rng_block=(n_total, offset)`: these rays are the block [offset,
+        offset + n_rays) of a batch of n_total rays (a ray shard of the
+        sharded mapper). The uniforms are then drawn (or given as `u`) for
+        the whole batch, [n_total, S], and the block is taken, so a shard
+        sees the numbers the unsharded batch would."""
         if not (self.perturb and (u is not None or generator is not None)):
             return z_vals
         mids = 0.5 * (z_vals[:, 1:] + z_vals[:, :-1])
         upper = torch.cat([mids, z_vals[:, -1:]], -1)
         lower = torch.cat([z_vals[:, :1], mids], -1)
+        n_rays, S = z_vals.shape
+        n_total, offset = (n_rays, 0) if rng_block is None else rng_block
         if u is None:
-            u = torch.rand(z_vals.shape, generator=generator,
+            u = torch.rand((int(n_total), S), generator=generator,
                            device=z_vals.device)
+        if rng_block is not None:
+            u = u[int(offset):int(offset) + n_rays]
         return lower + (upper - lower) * u
 
     def render_rays(self, params: Dict, rays_o: torch.Tensor,
                     rays_d: torch.Tensor, target_d: Optional[torch.Tensor],
                     generator: Optional[torch.Generator] = None,
                     u: Optional[torch.Tensor] = None,
-                    tables: Optional[Dict] = None) -> Dict:
+                    tables: Optional[Dict] = None,
+                    rng_block=None) -> Dict:
         """Render a batch of rays [R, 3] with depth-guided samples, or
         without a target depth with n_samples uniform in [near, far]
         (perturbed per bin when `training.perturb` is set and `u` or a
-        generator is given)."""
+        generator is given; `rng_block`: see `_perturb`)."""
         n_rays = rays_o.shape[0]
         if target_d is None:
             z_vals = self._perturb(_linspace(
                 self.near, self.far, self.n_samples,
-                rays_o.device).expand(n_rays, self.n_samples), generator, u)
+                rays_o.device).expand(n_rays, self.n_samples), generator, u,
+                rng_block)
         else:
-            z_vals = self.sample_z_vals(target_d, n_rays, generator, u)
+            z_vals = self.sample_z_vals(target_d, n_rays, generator, u,
+                                        rng_block)
         pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
         raw = self.query_color_sdf(params, pts.reshape(-1, 3),
                                    tables).reshape(n_rays, z_vals.shape[1], 4)
@@ -348,9 +372,26 @@ class SceneRep:
     # losses
     # ------------------------------------------------------------------
 
-    def co_sdf_losses(self, z_vals, target_d, sdf):
+    @staticmethod
+    def _psum(x: torch.Tensor, group) -> torch.Tensor:
+        """Sum of `x`, over every rank of `group` when the rays are a shard
+        (the differentiable all-reduce, whose backward is again a sum);
+        with group None the plain sum."""
+        s = x.sum()
+        return s if group is None else all_reduce_sum(s, group)
+
+    def _pmean(self, x: torch.Tensor, group) -> torch.Tensor:
+        """Global mean: the sum over the group over the element count over
+        the group (every shard holds the same number of rays)."""
+        if group is None:
+            return x.mean()
+        return self._psum(x, group) / (x.numel() * group.size)
+
+    def co_sdf_losses(self, z_vals, target_d, sdf, group=None):
         """Co-SLAM free-space + sdf losses: full-tensor MSE with
-        mask-as-weight times the count-balance weights."""
+        mask-as-weight times the count-balance weights. `group`: the ranks
+        over which the rays are sharded; the weights and means are then
+        those of the whole batch."""
         truncation = self.trunc * self.sc_factor
         t = target_d.reshape(-1, 1)
         front_mask = (z_vals < (t - truncation)).to(z_vals.dtype)
@@ -358,20 +399,21 @@ class SceneRep:
         depth_mask = (t > 0.0).to(z_vals.dtype)
         sdf_mask = (1.0 - front_mask) * (1.0 - back_mask) * depth_mask
 
-        num_fs = front_mask.sum()
-        num_sdf = sdf_mask.sum()
+        num_fs = self._psum(front_mask, group)
+        num_sdf = self._psum(sdf_mask, group)
         num = torch.clamp(num_fs + num_sdf, min=1.0)
         fs_weight = 1.0 - num_fs / num
         sdf_weight = 1.0 - num_sdf / num
 
-        fs_loss = ((sdf * front_mask - front_mask) ** 2).mean() * fs_weight
-        sdf_loss = (((z_vals + sdf * truncation) * sdf_mask - t * sdf_mask)
-                    ** 2).mean() * sdf_weight
+        fs_loss = self._pmean((sdf * front_mask - front_mask) ** 2,
+                              group) * fs_weight
+        sdf_loss = self._pmean(((z_vals + sdf * truncation) * sdf_mask
+                                - t * sdf_mask) ** 2, group) * sdf_weight
         return fs_loss, sdf_loss
 
-    def eslam_sdf_losses(self, z_vals, target_d, sdf):
+    def eslam_sdf_losses(self, z_vals, target_d, sdf, group=None):
         """ESLAM three-band losses as masked means; rays without depth are
-        excluded."""
+        excluded. `group` as in `co_sdf_losses`."""
         tr = self.truncation_model
         t = target_d.reshape(-1, 1)
         ray_valid = (t > 0).to(z_vals.dtype)
@@ -383,7 +425,8 @@ class SceneRep:
         tail = (1 - front) * (1 - back) * (1 - center) * ray_valid
 
         def masked_mean(x, m):
-            return (x * m).sum() / torch.clamp(m.sum(), min=1.0)
+            return self._psum(x * m, group) / torch.clamp(
+                self._psum(m, group), min=1.0)
 
         fs_loss = masked_mean((sdf - 1.0) ** 2, front)
         est_d = z_vals + sdf * tr
@@ -395,24 +438,33 @@ class SceneRep:
                 rays_d: torch.Tensor, target_rgb: torch.Tensor,
                 target_d: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
-                u: Optional[torch.Tensor] = None) -> Dict:
-        """Training forward: render + the full loss dict. `u` [n_rays, S]:
-        pre-drawn perturbation uniforms (else drawn from `generator`)."""
+                u: Optional[torch.Tensor] = None, group=None,
+                rng_block=None) -> Dict:
+        """Training forward: render + the full loss dict. `u`: pre-drawn
+        perturbation uniforms (else drawn from `generator`).
+
+        `group` (a `parallel.mesh.AxisGroup`): the rays are this rank's
+        shard of a batch sharded over the group's ranks; every loss is
+        then summed over the group, so each rank returns the losses (and
+        the PSNR) of the whole batch. `rng_block=(n_total, offset)`: the
+        shard's place in the batch, for its perturbation uniforms."""
         rend = self.render_rays(params, rays_o, rays_d, target_d,
-                                generator, u)
+                                generator, u, rng_block=rng_block)
         t = target_d.reshape(-1)
         valid_depth = ((t > 0.0) & (t < self.depth_trunc)).to(rays_o.dtype)
-        n_valid = torch.clamp(valid_depth.sum(), min=1.0)
+        n_valid = torch.clamp(self._psum(valid_depth, group), min=1.0)
 
-        rgb_loss = ((rend["rgb"] - target_rgb) ** 2).mean()
+        rgb_loss = self._pmean((rend["rgb"] - target_rgb) ** 2, group)
         psnr = -10.0 * torch.log10(torch.clamp(rgb_loss, min=1e-12))
-        depth_loss = (((rend["depth"] - t) ** 2) * valid_depth).sum() / n_valid
+        depth_loss = self._psum(((rend["depth"] - t) ** 2) * valid_depth,
+                                group) / n_valid
 
         sdf = rend["raw"][..., 3]
         z_vals = rend["z_vals"]
-        co_fs_loss, co_sdf_loss = self.co_sdf_losses(z_vals, target_d, sdf)
+        co_fs_loss, co_sdf_loss = self.co_sdf_losses(z_vals, target_d, sdf,
+                                                     group)
         e_fs_loss, e_center_loss, e_tail_loss = self.eslam_sdf_losses(
-            z_vals, target_d, sdf)
+            z_vals, target_d, sdf, group)
         return {
             "rgb": rend["rgb"],
             "depth": rend["depth"],

@@ -7,9 +7,16 @@ and size-1), border clamping. `sample_plane_packed` gathers one row of a
 backward scatters the four corner cotangents with ONE row scatter-add
 (`kernels.scatter_add_rows`, the CUDA kernel on the GPU) and folds the
 packed cotangent back onto the plane with the dense adjoint of the pack.
+
+The row-sharded mapper's seam (`parallel/mesh.make_row_sharded_pack`)
+samples a packed table directly (`PackedPlane`, `sample_packed_table`):
+the table is the differentiable input and its cotangent is the raw
+scatter, folded later block by block (`fold_corners_rows`).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -80,6 +87,43 @@ def _shift_back_y(a: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _fold_b_rows(d_rows: torch.Tensor) -> torch.Tensor:
+    """The y-shift operand of the corner fold on whole y-rows,
+    b = d10 + shift_back_x(d11), row-local (the x-shift never crosses
+    y-rows): d_rows [Hb, W, 4C] -> [Hb, W, C]."""
+    C = d_rows.shape[-1] // 4
+    return d_rows[..., 2 * C:3 * C] + _shift_back_x(d_rows[..., 3 * C:])
+
+
+def fold_corners_rows(d_rows: torch.Tensor, H: int, W: int, y0: int = 0,
+                      halo_row: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """Adjoint of `pack_corners_hwc` on a block of whole y-rows.
+
+    d_rows [Hb*W, 4C]: packed-table cotangent rows for global y in
+    [y0, y0+Hb) (rows with y >= H are the row-sharding pad). halo_row
+    [W, C] or None: the y-shift term entering from row y0-1, the previous
+    block's last `_fold_b_rows` row (None: zeros, right for y0 == 0).
+    -> the plane cotangent rows [Hb*W, C], rows y >= H zero. Folding
+    consecutive blocks with their halos equals folding the whole table:
+    the x-shift stays inside a y-row and the y-shift moves one y-row."""
+    Hb = d_rows.shape[0] // W
+    C = d_rows.shape[1] // 4
+    d = d_rows.reshape(Hb, W, 4 * C)
+    b = _fold_b_rows(d)
+    halo = (d.new_zeros((1, W, C)) if halo_row is None
+            else halo_row.reshape(1, W, C).to(d.dtype))
+    y = y0 + torch.arange(Hb, device=d.device).reshape(Hb, 1, 1)
+    out = (d[..., :C] + _shift_back_x(d[..., C:2 * C])
+           + torch.cat([halo, b[:-1]], dim=0)
+           + torch.where(y == H - 1, b, torch.zeros((), dtype=d.dtype,
+                                                    device=d.device)))
+    if not (y0 == 0 and Hb == H):
+        out = torch.where(y < H, out, torch.zeros((), dtype=d.dtype,
+                                                  device=d.device))
+    return out.reshape(Hb * W, C)
+
+
 def _unpack_corners_adjoint(d_packed: torch.Tensor, C: int, H: int,
                             W: int) -> torch.Tensor:
     """Adjoint of `pack_corners`: packed cotangent [H*W, 4C] -> plane
@@ -91,6 +135,29 @@ def _unpack_corners_adjoint(d_packed: torch.Tensor, C: int, H: int,
     d11 = d[..., 3 * C:4 * C]
     out = d00 + _shift_back_x(d01) + _shift_back_y(d10 + _shift_back_x(d11))
     return out.permute(2, 0, 1).contiguous()
+
+
+def _corner_vals(dout, wx, wy) -> torch.Tensor:
+    """The four corners' cotangents of dout [N, C] side by side, [N, 4C]:
+    the rows the sampler's backward scatter-adds into the packed table."""
+    return torch.cat([dout * ((1 - wx) * (1 - wy))[:, None],
+                      dout * (wx * (1 - wy))[:, None],
+                      dout * ((1 - wx) * wy)[:, None],
+                      dout * (wx * wy)[:, None]], dim=-1)
+
+
+def _coords_cotangent(g, wx, wy, coords, dout, C: int, H: int, W: int):
+    """The sample coordinates' cotangent [N, 2] from the gathered corner
+    rows g [N, 4C] and the output cotangent dout [N, C]."""
+    g00, g01, g10, g11 = (g[:, i * C:(i + 1) * C] for i in range(4))
+    gx = (g01 - g00) * (1 - wy)[:, None] + (g11 - g10) * wy[:, None]
+    gy = (g10 - g00) * (1 - wx)[:, None] + (g11 - g01) * wx[:, None]
+    # a clip passes its gradient on [min, max] inclusive
+    mx = ((coords[:, 0] >= -1.0) & (coords[:, 0] <= 1.0)).to(dout.dtype)
+    my = ((coords[:, 1] >= -1.0) & (coords[:, 1] <= 1.0)).to(dout.dtype)
+    dx = (gx * dout).sum(-1) * (0.5 * (W - 1)) * mx
+    dy = (gy * dout).sum(-1) * (0.5 * (H - 1)) * my
+    return torch.stack([dx, dy], dim=-1).to(coords.dtype)
 
 
 class _SamplePlanePacked(torch.autograd.Function):
@@ -116,36 +183,74 @@ class _SamplePlanePacked(torch.autograd.Function):
         dout = dout.to(g.dtype)
         d_plane = d_coords = None
         if ctx.needs_input_grad[0]:
-            vals = torch.cat([
-                dout * ((1 - wx) * (1 - wy))[:, None],
-                dout * (wx * (1 - wy))[:, None],
-                dout * ((1 - wx) * wy)[:, None],
-                dout * (wx * wy)[:, None],
-            ], dim=-1)                                     # [N, 4C]
-            d_packed = scatter_add_rows(idx, vals, H * W)
+            d_packed = scatter_add_rows(idx, _corner_vals(dout, wx, wy),
+                                        H * W)
             d_plane = _unpack_corners_adjoint(d_packed, C, H, W)
         if ctx.needs_input_grad[1]:
-            g00, g01, g10, g11 = (g[:, i * C:(i + 1) * C] for i in range(4))
-            gx = (g01 - g00) * (1 - wy)[:, None] + (g11 - g10) * wy[:, None]
-            gy = (g10 - g00) * (1 - wx)[:, None] + (g11 - g01) * wx[:, None]
-            # a clip passes its gradient on [min, max] inclusive
-            mx = ((coords[:, 0] >= -1.0) & (coords[:, 0] <= 1.0)).to(dout.dtype)
-            my = ((coords[:, 1] >= -1.0) & (coords[:, 1] <= 1.0)).to(dout.dtype)
-            dx = (gx * dout).sum(-1) * (0.5 * (W - 1)) * mx
-            dy = (gy * dout).sum(-1) * (0.5 * (H - 1)) * my
-            d_coords = torch.stack([dx, dy], dim=-1).to(coords.dtype)
+            d_coords = _coords_cotangent(g, wx, wy, coords, dout, C, H, W)
         return d_plane, d_coords
+
+
+class PackedPlane:
+    """A `pack_corners` table standing in for a plane in a params tree:
+    `packed` [H*W, 4C] and the plane's shape (C, H, W). The row-sharded
+    mapper renders from these, so the table (not the plane) is the
+    differentiable input and its cotangent is the raw packed scatter."""
+
+    __slots__ = ("packed", "shape")
+
+    def __init__(self, packed: torch.Tensor, shape):
+        self.packed = packed
+        self.shape = tuple(int(s) for s in shape)
+
+    def to(self, dtype) -> "PackedPlane":
+        """The table cast to `dtype` (for `cast_params`)."""
+        return PackedPlane(self.packed.to(dtype), self.shape)
+
+    def __repr__(self):
+        return f"PackedPlane(shape={self.shape})"
+
+
+class _SamplePackedTable(torch.autograd.Function):
+    """Forward: one row gather per point from a packed table. Backward:
+    the table cotangent is the corner cotangents [N, 4C] through one row
+    scatter-add, without the unpack fold (the caller owns the pack and its
+    adjoint); the coordinate cotangent as in `_SamplePlanePacked`."""
+
+    @staticmethod
+    def forward(ctx, table, coords, H, W):
+        C = table.shape[1] // 4
+        idx, wx, wy = _cell(coords, H, W)
+        wx = wx.to(table.dtype)
+        wy = wy.to(table.dtype)
+        g = table[idx]                                     # [N, 4C]
+        ctx.save_for_backward(g, wx, wy, idx, coords)
+        ctx.hw = (H, W)
+        return _combine(g, wx, wy, C)
+
+    @staticmethod
+    def backward(ctx, dout):
+        g, wx, wy, idx, coords = ctx.saved_tensors
+        H, W = ctx.hw
+        C = g.shape[1] // 4
+        dout = dout.to(g.dtype)
+        d_table = d_coords = None
+        if ctx.needs_input_grad[0]:
+            d_table = scatter_add_rows(idx, _corner_vals(dout, wx, wy),
+                                       H * W)
+        if ctx.needs_input_grad[1]:
+            d_coords = _coords_cotangent(g, wx, wy, coords, dout, C, H, W)
+        return d_table, d_coords, None, None
 
 
 def sample_packed_table(table: torch.Tensor, coords: torch.Tensor, H: int,
                         W: int) -> torch.Tensor:
-    """Forward of `sample_plane_packed` from a table already packed by
-    `pack_corners` (no autograd), so that a chunked query packs each plane
-    once: [H*W, 4C] table, coords [N, 2] -> [N, C], bit for bit the
-    packed sampler's forward."""
-    C = table.shape[1] // 4
-    idx, wx, wy = _cell(coords, H, W)
-    return _combine(table[idx], wx.to(table.dtype), wy.to(table.dtype), C)
+    """Bilinear sample from a table packed by `pack_corners`: [H*W, 4C]
+    table, coords [N, 2] in [-1, 1] -> [N, C], bit for bit the packed
+    sampler's forward. Differentiable in the table (the raw packed
+    scatter, one kernel-1 call) and in the coordinates; without grad it is
+    the chunked queries' sampler (each plane packed once)."""
+    return _SamplePackedTable.apply(table, coords, H, W)
 
 
 def sample_plane_packed(plane: torch.Tensor,

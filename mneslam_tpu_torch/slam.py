@@ -40,6 +40,17 @@ run resumed from it continues as the uninterrupted run would
 (`cli --resume`). As in the JAX package, the factor graph's edges and the
 motion filter's last features are not in it.
 
+With `mapping.shard_plane_rows` in a world of several ranks
+(`torch.distributed`, started by `cli.main` under `torchrun`) the mapper
+is the row-sharded one over every rank (`parallel/mesh.py`). Rank 0 is
+the leader: it runs the agent (dataset, tracking, backend, bookkeeping,
+terminate, every output file). Every other rank is a follower (`follow`):
+it runs only the collective `Mapper.optimize`, in lockstep, receiving
+from the leader before each map call the keyframe's frame and pose, the
+keyframe-DB slots written since the last call and the count, the
+keyframe poses, the iteration count and the mapper generator's state.
+Every process seeds the agent's generators by the agent's rank.
+
 Multi-agent hooks (`agents/runner.py`): `world_size`, and `collab`, set
 by `MultiAgentRunner`, whose `on_keyframe_mapped` runs after every mapped
 keyframe with the agent's raw (tracker-world) keyframe poses. Under
@@ -66,6 +77,7 @@ from .mapping import cull
 from .mapping.mapper import Mapper
 from .mapping.mesher import extract_mesh
 from .models import droid_net
+from .parallel import mesh as mesh_lib
 from .models.scene_rep import SceneRep, checkpoint_key, param_items
 from .ops import lie, mc
 from .tracking import video as video_lib
@@ -107,10 +119,22 @@ class MNESLAM:
             raise ValueError(f"mode {self.mode!r}: mneslam_tpu_torch runs "
                              "mode 'mapping' or 'slam'")
 
+        # mapping.shard_plane_rows on a world of several ranks: the
+        # row-sharded mapper over all of them, rank 0 the leader
+        self.map_mesh = None
+        if (bool(config["mapping"].get("shard_plane_rows", False))
+                and torch.distributed.is_initialized()
+                and torch.distributed.get_world_size() > 1):
+            self.map_mesh = mesh_lib.make_mesh(1)
+        self.follower = self.map_mesh is not None and self.map_mesh.rank > 0
+        self._synced_kf = 0        # keyframe-DB slots the followers hold
+        self._released = False
+
         out_root = config["data"].get("output", "output")
         exp = config["data"].get("exp_name", "exp")
         self.out_dir = os.path.join(out_root, exp, f"agent_{rank}")
-        os.makedirs(os.path.join(self.out_dir, "mesh"), exist_ok=True)
+        if not self.follower:
+            os.makedirs(os.path.join(self.out_dir, "mesh"), exist_ok=True)
 
         self.scene = SceneRep(config, self.device)
         if self.mode == "mapping":
@@ -121,11 +145,15 @@ class MNESLAM:
             # SLAM mode maps every admitted keyframe
             num_kf = min(len(dataset), int(config["tracking"]["buffer"])) + 1
         self.mapper = Mapper(config, self.scene, num_kf=num_kf,
-                             rays_per_kf=dataset.num_rays_to_save)
+                             rays_per_kf=dataset.num_rays_to_save,
+                             mesh=self.map_mesh,
+                             shard_plane_rows=self.map_mesh is not None)
         self.map_state = self.mapper.init_state(
             make_generator(self.device, 42 + rank))
         self.generator = make_generator(self.device, 1000 + rank)
-        self.timers = StageTimers(os.path.join(self.out_dir, "metrics.jsonl"))
+        self.timers = StageTimers(
+            None if self.follower
+            else os.path.join(self.out_dir, "metrics.jsonl"))
 
         self.mapped_timestamps: list[float] = []
         self.first_frame_mapped = False
@@ -134,7 +162,7 @@ class MNESLAM:
 
         self.tracker = None
         self.traj_filler = None
-        if self.mode == "slam":
+        if self.mode == "slam" and not self.follower:
             params = self._droid_params(droid_params)
             self.tracker = Tracker(config, params,
                                    self._tracking_intrinsics(), self.device,
@@ -203,21 +231,96 @@ class MNESLAM:
 
     def _map_keyframe(self, frame_idx: int, frame: Dict,
                       pose_c2w: torch.Tensor, first: bool):
+        """Add the keyframe and optimize: `mapping.first_iters` steps on
+        the first (`Mapper.first_frame_mapping`), `mapping.iters` after."""
         with self.timers.stage("map_keyframe"):
             frame = dict(frame, frame_id=frame_idx)
+            iters = int(self.config["mapping"][
+                "first_iters" if first else "iters"])
+            self.map_state = self.mapper.add_keyframe(
+                self.map_state, frame_idx, frame, pose_c2w, self.generator)
+            self._lead(frame, pose_c2w, iters)
+            self.map_state, metrics = self.mapper.optimize(
+                self.map_state, frame, pose_c2w, self.generator, iters=iters)
             if first:
-                self.map_state, metrics = self.mapper.first_frame_mapping(
-                    self.map_state, frame, pose_c2w, self.generator)
                 self.first_frame_mapped = True
-            else:
-                self.map_state = self.mapper.add_keyframe(
-                    self.map_state, frame_idx, frame, pose_c2w,
-                    self.generator)
-                self.map_state, metrics = self.mapper.optimize(
-                    self.map_state, frame, pose_c2w, self.generator,
-                    iters=int(self.config["mapping"]["iters"]))
             self._post_map_bookkeeping(frame_idx, frame, pose_c2w, metrics)
         return metrics
+
+    # ------------------------------------------------------------------
+    # the row-sharded world: leader and followers
+    # ------------------------------------------------------------------
+
+    _HEADER = 7  # op, iters, use_cur, first new DB slot, count, H, W
+
+    def _lead(self, frame: Dict, pose_c2w: torch.Tensor, iters: int,
+              use_cur: bool = True):
+        """Leader: broadcast what the next collective `optimize` needs
+        (a no-op without followers)."""
+        if self.map_mesh is None or self.map_mesh.size == 1:
+            return
+        group = self.mapper.group
+        db = self.map_state.db
+        H, W = frame["depth"].shape
+        lo = self._synced_kf
+        mesh_lib.broadcast(torch.tensor(
+            [1, iters, int(use_cur), lo, db.count, H, W], dtype=torch.int64,
+            device=self.device), group)
+        for t in (frame["direction"], frame["rgb"], frame["depth"], pose_c2w,
+                  db.rays[lo:db.count], db.frame_ids[lo:db.count],
+                  self.map_state.kf_poses,
+                  self.generator.get_state().to(self.device)):
+            mesh_lib.broadcast(t.contiguous(), group)
+        self._synced_kf = db.count
+
+    def release_followers(self):
+        """Leader: tell the followers the run has ended (once)."""
+        if self.map_mesh is None or self.map_mesh.size == 1 \
+                or self.follower or self._released:
+            return
+        mesh_lib.broadcast(torch.zeros(self._HEADER, dtype=torch.int64,
+                                       device=self.device), self.mapper.group)
+        self._released = True
+
+    def follow(self):
+        """Follower: run the leader's map calls in lockstep until it
+        releases the followers. Each call receives the frame, the pose,
+        the new keyframe-DB slots and the count, the keyframe poses and
+        the mapper generator's state, then runs the collective optimize;
+        the maps of every rank stay equal."""
+        if not self.follower:
+            raise RuntimeError("follow() runs on a follower rank (rank > 0 "
+                               "of a row-sharded world)")
+        group, dev = self.mapper.group, self.device
+
+        def recv(shape, dtype):
+            return mesh_lib.broadcast(
+                torch.empty(shape, dtype=dtype, device=dev), group)
+
+        db, f32 = self.map_state.db, torch.float32
+        gen_state = self.generator.get_state()
+        while True:
+            op, iters, use_cur, lo, hi, H, W = recv(
+                (self._HEADER,), torch.int64).tolist()
+            if op == 0:
+                return
+            if lo != db.count:
+                raise RuntimeError(f"follower holds {db.count} keyframes, "
+                                   f"the leader sends slots from {lo}")
+            frame = {"direction": recv((H, W, 3), f32),
+                     "rgb": recv((H, W, 3), f32), "depth": recv((H, W), f32)}
+            pose = recv((4, 4), f32)
+            db.rays[lo:hi] = recv((hi - lo,) + tuple(db.rays.shape[1:]),
+                                  db.rays.dtype)
+            db.frame_ids[lo:hi] = recv((hi - lo,), db.frame_ids.dtype)
+            db.count = hi
+            self.map_state.kf_poses.copy_(recv(
+                tuple(self.map_state.kf_poses.shape), f32))
+            self.generator.set_state(
+                recv(tuple(gen_state.shape), gen_state.dtype).cpu())
+            self.map_state, _ = self.mapper.optimize(
+                self.map_state, frame, pose, self.generator, iters=iters,
+                use_cur=bool(use_cur))
 
     def _post_map_bookkeeping(self, frame_idx: int, frame: Dict,
                               pose_c2w: torch.Tensor, metrics):
@@ -532,7 +635,9 @@ class MNESLAM:
         (GT-aligned c2w), key_timestamps.npy, and from the trajectory
         filler over every frame est_poses.npy with its APE (Sim(3),
         `results["ate"]`) in metrics_traj.txt; then final_checkpoint.npz
-        (slam.py:649-707 of the JAX package)."""
+        (slam.py:649-707 of the JAX package). Releases the followers of a
+        row-sharded world first."""
+        self.release_followers()
         self._flush_metrics()
         results = {"keyframes": len(self.mapped_timestamps)}
         with self.timers.stage("mesh"):
@@ -699,6 +804,7 @@ class MNESLAM:
             ms.db.rays.copy_(torch.as_tensor(data["db/rays"]))
             ms.db.frame_ids.copy_(torch.as_tensor(data["db/frame_ids"]))
             ms.db.count = int(data["db/count"])
+            self._synced_kf = ms.db.count   # every rank loads the file
             ms.kf_poses.copy_(torch.as_tensor(data["kf_poses"]))
             self.generator.set_state(torch.as_tensor(data["rng/generator"]))
             self.map_counter = int(data["host/map_counter"])

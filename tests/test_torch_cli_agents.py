@@ -1,7 +1,7 @@
 """The multi-agent CLI of the port on the CPU: two agents in one process
 over the on-disk exchange, one process per agent (--spawn, as
 tests/test_cli.py:133-147), per-agent --resume paths and config files,
---device_mesh (not ported) and the default device."""
+--device_mesh over several ranks (not ported) and the default device."""
 
 import os
 import subprocess
@@ -80,9 +80,16 @@ def test_cli_spawn_runs_one_process_per_agent(tmp_path):
 
 def test_cli_device_mesh_raises_and_resume_paths(tmp_path, monkeypatch):
     path = _tiny_yaml(tmp_path, "x")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        cli.main(["--config", str(path), "--num_agents", "2",
-                  "--device_mesh", "--device", "cpu"])
+    # the mesh fleet over a world of several ranks (the composed agents x
+    # rows fleet) is not ported; on one process --device_mesh runs
+    # (tests/test_torch_fleet.py)
+    with monkeypatch.context() as m:
+        m.setattr(torch.distributed, "is_initialized", lambda: True)
+        m.setattr(torch.distributed, "get_rank", lambda: 0)
+        m.setattr(torch.distributed, "get_world_size", lambda: 4)
+        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+            cli.main(["--config", str(path), "--num_agents", "2",
+                      "--device_mesh", "--device", "cpu"])
     # N agents: agent r resumes from PATH.agent<r>
     seen = []
     monkeypatch.setattr(MNESLAM, "load_full_state",

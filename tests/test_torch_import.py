@@ -38,7 +38,7 @@ def test_every_module_imports_without_jax():
               "agents.netvlad", "agents.loop_detector", "agents.fusion",
               "agents.runner", "cli", "data.image_io", "data.datasets",
               "tools.validate_dataset", "tools.eval_ate",
-              "tools.import_weights"):
+              "tools.import_weights", "parallel.mesh", "parallel.fleet"):
         assert f"mneslam_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -72,6 +72,31 @@ def test_sources_name_no_jax():
                              for i, line in enumerate(fh, 1)
                              if FORBIDDEN.search(line)]
     assert not hits, hits
+    helper = os.path.join(REPO, "tests", "_torch_dist.py")
+    with open(helper) as fh:
+        hits += [f"{helper}:{i}: {line.strip()}" for i, line in
+                 enumerate(fh, 1) if FORBIDDEN.search(line)]
+    assert not hits, hits
     assert FORBIDDEN.search("import jax.numpy as jnp")
     assert FORBIDDEN.search("from mneslam_tpu.ops import interp")
     assert not FORBIDDEN.search("from mneslam_tpu_torch.ops import interp")
+
+
+def test_distributed_test_ranks_load_no_jax():
+    """The ranks of the distributed CPU tests (`tests/_torch_dist.py`) run
+    the port alone: importing their module and every case's imports loads
+    no JAX."""
+    code = (
+        "import sys\n"
+        "import tests._torch_dist as d\n"
+        "import mneslam_tpu_torch.parallel.fleet, mneslam_tpu_torch.cli\n"
+        "import mneslam_tpu_torch.tools.validate_dataset\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m.startswith('mneslam_tpu.'))\n"
+        "print('BAD', bad, sorted(d.CASES))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=REPO, env=env, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "BAD []" in r.stdout, r.stdout
