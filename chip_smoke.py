@@ -61,7 +61,8 @@ Phases, each of which must pass (any failure exits non-zero):
      BA step (chiprun_out/chip_smoke/{tracking,global_ba}_profile.txt); its
      terminate must write both meshes, and the mesh step's seconds (79
      keyframes' depths, the grid, the cull) are printed;
-  9. the same path with MNESLAM_CORR_IMPL=pallas_mxu for 32 frames: every
+  9. the same path with MNESLAM_CORR_IMPL=pallas_mxu for 26 frames (the
+     fewest past the frontend window: loop BA and one global BA): every
      correlation lookup is a launch of kernel 2b and none of kernel 2;
  10. each kernel against its plain PyTorch version at the main path's
      shapes, with times (CUDA events) beside its bound and, where one
@@ -93,7 +94,7 @@ Phases, each of which must pass (any failure exits non-zero):
      translation error under half its start and the best loss under a
      quarter of the initial one; 12c. two agents under
      `MultiAgentRunner.run_slam` at room0 widths with the ROOM0
-     collaboration keys, on frames 0-27 and 14-41 of one 42-frame
+     collaboration keys, on frames 0-19 and 14-33 of one 42-frame
      box-room trajectory (bf16 DROID encoders with random weights, the
      update's flow and weights replaced by ground-truth reprojection
      targets as in phases 5-6, every frame admitted; with the random
@@ -163,7 +164,7 @@ Phases, each of which must pass (any failure exits non-zero):
      `torchrun --nproc_per_node=2` of `cli.main` (each rank through
      `--cli-rank`, which writes its launch counts after `cli.main`)
      on room0_v5e8.yaml over 6 box-room frames (fp32, the sync seam,
-     first_iters 3, iters 2): `parallel/mesh.init_world` on every rank
+     first_iters 2, iters 1): `parallel/mesh.init_world` on every rank
      picks gloo on cuda:0, rank 0 leads `MNESLAM` and writes the outputs,
      rank 1 follows its map calls; its per-keyframe losses within rtol
      1e-4 of a one-process `cli.main` of the same config (the plain
@@ -179,9 +180,33 @@ Phases, each of which must pass (any failure exits non-zero):
      config (kernel 2 once per lookup, kernel 1 six times per mapping
      iteration, finite trajectories) and `python -m mneslam_tpu_torch.cli
      --device_mesh --num_agents 2` on phase 3's tiny config (exit 0, both
-     agents' outputs). 14d's runs in this process go first, on a quiet
-     card; then the child processes of 14b, 14c and 14d's CLI run at the
-     same time. The phase's time is printed beside its budget of 150 s.
+     agents' outputs); 14e. the composed fleet: `torchrun
+     --nproc_per_node=4` of `cli.main --num_agents 2 --device_mesh` (each
+     rank through `--cli-rank`, its agent on a segment of a box-room
+     trajectory; 2 agents x 2 row ranks on cuda:0 over gloo; rank r runs
+     agent r // 2, the slice's first rank leads it, the other follows its
+     map calls): configs/Replica/room0_v5e8_fleet.yaml's keys (row
+     sharding, shard_gather_every 1) on 14d's segments (3 keyframes an
+     agent, first_iters 2 and iters 1, fp32 render as in 14c) against
+     the one-slice fleet in this process, which runs twice (every
+     keyframe's loss rtol 1e-4, parameters 5e-4 on all but 1e-6 of the
+     elements beside the one-slice fleet's spread against itself; both
+     leaders' outputs and nothing else; each leader's descriptor DB holds
+     every mapped keyframe of both agents); phase 5's tiny config in SLAM
+     mode with the oracle update on 14d's SLAM segments (trajectories
+     finite and within 5 cm of 14d's one-slice fleet's); and
+     tests/test_torch_fleet.py:94's tiny setup with loop detection on (the
+     one-slice fleet's alignments, closures and distillations, a peer map
+     fetched across slices, the maps after the fusion within 5e-4 of the
+     one-slice fleet's on all but 1e-6 of the elements, beside its spread
+     against itself). In every world every rank exits 0, each follower
+     returns nothing, kernel 1 launches six times per iteration of its
+     slice's map calls (and of its distillations on a leader) on every
+     rank, kernel 2 once per lookup on a leader and never on a follower;
+     seconds per world and ms per iteration by rank. 14d's runs and 14e's
+     references in this process go first, on a quiet card; then the
+     child processes of 14b, 14c, 14d's CLI and 14e run at the same time.
+     The phase's time is printed beside its budget of 210 s.
 Prints the kernels' JSON line, then as the last line
 {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc; imports
 nothing of JAX.
@@ -249,7 +274,11 @@ ATE_TOL_M = 0.05
 # dense, chunked (from 41), chunked, sparse + chunked (past 64); loop BA
 # runs after every keyframe past 25, sparse past 64
 SLAM_FRAMES = 80
-MXU_FRAMES = 32             # the pallas_mxu run: loop BA and one global BA
+# the pallas_mxu run: the fewest frames that take it past the frontend
+# window of 25 with every frame admitted, so that loop BA runs (at the
+# 26th keyframe) and one global BA (after the last batch: 26 keyframes
+# > 25); 32 before 14e was added
+MXU_FRAMES = 26
 # the room0 paths' synthetic box room [-BOX_HALF, BOX_HALF]^3
 BOX_HALF = 0.95
 # mesh parity: the tiny map's grid covers a 0.5 x 0.5 m patch of the wall
@@ -1368,10 +1397,15 @@ def tpu_probes(real, card) -> dict:
 # ---------------------------------------------------------------------------
 
 # 12c: two agents' segments of one box-room trajectory of MA_FRAMES frames;
-# the shared frames give exact cross-agent descriptor matches. 28 frames
-# each: past the frontend window of 25, so loop BA runs
+# the shared frames give exact cross-agent descriptor matches. 20 frames
+# each (28 before 14e was added, past the frontend window, so loop BA
+# ran there;
+# phases 6 and 8 hold loop BA): the descriptor DB reaches
+# loop_detection.loop_launch_th (20) at the 10th keyframe of each, and
+# what comes before is as on longer segments (agent 1's first alignment
+# there, the one accepted on 24-frame segments); 6 frames are shared
 MA_FRAMES = 42
-MA_SEGMENTS = ((0, 28), (14, 42))
+MA_SEGMENTS = ((0, 20), (14, 34))
 # phase 12's printed budget (not a failure when over)
 COLLAB_BUDGET_S = 240.0
 # 12b: the oracle alignment's perturbation and learning rates
@@ -2474,8 +2508,9 @@ def files_phase(card, fp32_iter_ms, fp32_kf_ms) -> dict:
 # 14. the row-sharded mapper and the mesh fleet
 # ---------------------------------------------------------------------------
 
-# phase 14's printed budget (not a failure when over)
-SHARD_BUDGET_S = 150.0
+# phase 14's printed budget (not a failure when over): 150 s before 14e,
+# raised by the 60 s that 14e's worlds add beside 14b, 14c and 14d's CLI
+SHARD_BUDGET_S = 210.0
 # 14a: (frame, iterations) per map call; room0's first_iters 500 and
 # iters 50 cut to 20 and 10
 SHARD_SCHEDULE = ((0, 20), (5, 10), (10, 10))
@@ -2883,11 +2918,12 @@ def plain_reference(cfg, spec, schedule, save: str) -> dict:
             "iters": sum(n for _, n in schedule)}
 
 
-def fleet_check(card) -> dict:
+def fleet_check(card) -> tuple:
     """14d: `MeshAgentFleet.run_mapping_only` for two agents at room0
     widths on the first FLEET_FRAMES frames of 12c's segments, against
     `MultiAgentRunner.run_mapping_only` on the same agents, which runs
-    twice: its distance from itself is the card's run-to-run spread."""
+    twice: its distance from itself is the card's run-to-run spread ->
+    (the frames, kept for 14e, and the numbers printed)."""
     import copy
 
     import torch
@@ -2961,7 +2997,8 @@ def fleet_check(card) -> dict:
                    for x, y in zip(xs, ys)
                    for mx, my in zip(x.metrics_log, y.metrics_log))
 
-    return {"mesh": fleet.mesh.shape, "mapped": n_map, "iters": iters,
+    return frames, {"mesh": fleet.mesh.shape, "mapped": n_map,
+                    "iters": iters,
             "max_rel_loss_diff_vs_runner": loss_rel(fl_agents, seq),
             "runner_vs_itself_rel_loss": loss_rel(again, seq),
             "params_vs_runner": params_vs_runner(fl_agents),
@@ -2984,14 +3021,15 @@ def fleet_check(card) -> dict:
 # one GPU), rank 0 leading, the others following its map calls.
 # configs/Replica/room0_v5e8.yaml over the synthetic box room, keyframes
 # 0 and 5 of CLI_FRAMES frames, room0's first_iters 500 and iters 50 cut
-# to CLI_ITERS, terminate's mesh at CLI_MESH_RES m (room0's 0.02 cut); the
+# to CLI_ITERS ((3, 2) before 14e), terminate's mesh at CLI_MESH_RES m
+# (room0's 0.02 cut); the
 # sync seam in fp32 (the yaml's gather_every 8 reads stale tables and its
 # bf16 sums round per rank: 14a-14b hold those), so the leader's
 # per-keyframe losses hold rtol 1e-4 against a one-process `cli.main` of
 # the same config, which maps with the plain mapper
 CLI_RANKS = 2
 CLI_FRAMES = 6
-CLI_ITERS = (3, 2)
+CLI_ITERS = (2, 1)
 CLI_MESH_RES = 0.1
 # 14d: the fleet's SLAM path on phase 5's tiny config (oracle update)
 FLEET_SLAM_FRAMES = 16
@@ -2999,19 +3037,144 @@ FLEET_SLAM_SEGMENTS = ((0, 10), (6, 16))
 
 
 def cli_rank_main(argv) -> int:
-    """A rank of 14c under torchrun (`chip_smoke.py --cli-rank PREFIX
-    ARGS...`): `cli.main(ARGS)`, then this rank's kernel launches to
-    PREFIX.rank<RANK>.json."""
+    """A rank of 14c / 14e under torchrun (`chip_smoke.py --cli-rank PREFIX
+    ARGS...`): with PREFIX.setup.json (14e) its agent on a segment of one
+    box-room trajectory (`install_fleet_setup`); `cli.main(ARGS)`; then
+    this rank's kernel launches, the result's keyframe count and its
+    agent's record (`agent_record`) to PREFIX.rank<RANK>.json."""
     sys.path.insert(0, ROOT)
     from mneslam_tpu_torch import cli
 
     prefix, args = argv[0], argv[1:]
+    built, timing = [], {"optimize_s": 0.0, "iters": 0}
+    if os.path.exists(prefix + ".setup.json"):
+        with open(prefix + ".setup.json") as f:
+            install_fleet_setup(json.load(f), built, timing)
     result = cli.main(args)
     with open(f"{prefix}.rank{os.environ['RANK']}.json", "w") as f:
         json.dump({"launches": read_launches(),
                    "keyframes": None if result is None
-                   else result["keyframes"]}, f)
+                   else result["keyframes"],
+                   "agents": [agent_record(a) for a in built],
+                   "optimize_ms_per_iter": 1e3 * timing["optimize_s"]
+                   / max(timing["iters"], 1)}, f)
     return 0
+
+
+def install_fleet_setup(setup: dict, built: list, timing: dict):
+    """14e's ranks: `cli.main` builds this rank's agent (rank // ranks a
+    slice) on its segment of one box-room trajectory (`setup`: frames,
+    half, segments) rendered on demand and kept, as an `OracleMNESLAM`
+    on a SLAM leader (`setup["oracle"]`), recorded in `built`; the
+    mapper's `optimize` calls are timed into `timing` (a synchronisation
+    on each side)."""
+    import torch
+
+    from mneslam_tpu_torch import slam as slam_mod
+    from mneslam_tpu_torch.data import datasets
+    from mneslam_tpu_torch.data.synthetic import SyntheticBoxDataset
+    from mneslam_tpu_torch.mapping.mapper import Mapper
+    from mneslam_tpu_torch.tools.validate_dataset import OracleMNESLAM
+
+    segs = setup["segments"]
+    per_slice = int(os.environ["WORLD_SIZE"]) // len(segs)
+    rank = int(os.environ["RANK"])
+    lo, hi = segs[rank // per_slice]
+
+    def get_dataset(cfg):
+        return Slice(FrameCache(SyntheticBoxDataset(
+            cfg, num_frames=setup["frames"], half=setup["half"])), lo, hi)
+
+    base = (OracleMNESLAM if setup["oracle"] and rank % per_slice == 0
+            else slam_mod.MNESLAM)
+
+    class Recorded(base):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            built.append(self)
+
+    optimize = Mapper.optimize
+
+    def timed(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = optimize(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        timing["optimize_s"] += time.perf_counter() - t0
+        timing["iters"] += int(kwargs["iters"])
+        return out
+
+    datasets.get_dataset = get_dataset
+    slam_mod.MNESLAM = Recorded
+    Mapper.optimize = timed
+
+
+def agent_record(a) -> dict:
+    """A 14e rank's agent: its role and, on a leader, its keyframes,
+    losses, mapping and distillation iterations, lookups, collaboration
+    counters, peer maps received and descriptor DB."""
+    rec = {"agent": a.rank, "follower": a.follower, "out_dir": a.out_dir}
+    if a.follower:
+        return rec
+    mp, c = a.config["mapping"], a.collab
+    n = len(a.mapped_timestamps)
+    rec.update(
+        mapped=list(a.mapped_timestamps),
+        losses=[float(m["loss"]) for m in a.metrics_log],
+        map_iters=int(mp["first_iters"]) + (n - 1) * int(mp["iters"])
+        if n else 0,
+        distill_iters=c.distillations * int(mp["distill_iters"]),
+        lookups=lookups(a) if a.tracker is not None else 0,
+        alignments=c.alignments, accepted=c.closures_accepted,
+        rejected=c.closures_rejected, distillations=c.distillations,
+        maps_received=c.comms.maps_received,
+        db=sorted([int(e["agent_id"]), int(e["kf_id"])]
+                  for e in c.comms.descriptors()))
+    return rec
+
+
+def torchrun_world(tag: str, n_ranks: int, cli_args: list,
+                   setup=None) -> dict:
+    """`cli.main(cli_args)` on `n_ranks` ranks under `python -m
+    torch.distributed.run --standalone` (each `chip_smoke.py --cli-rank`,
+    which picks gloo on cuda:0), with 14e's `setup` -> {"code" (0, an exit
+    code or "killed after ..."), "seconds", "log", "ranks": each rank's
+    record, or None}. The log goes to chiprun_out/chip_smoke/<tag>.log."""
+    import signal
+
+    prefix = os.path.join(RUN_OUT, tag, "counts")
+    os.makedirs(os.path.dirname(prefix), exist_ok=True)
+    for r in range(n_ranks):
+        if os.path.exists(f"{prefix}.rank{r}.json"):
+            os.remove(f"{prefix}.rank{r}.json")
+    if setup is not None:
+        with open(prefix + ".setup.json", "w") as f:
+            json.dump(setup, f)
+    log_path = os.path.join(OUT, f"{tag}.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as logf:
+        p = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             f"--nproc_per_node={n_ranks}",
+             os.path.join(ROOT, "chip_smoke.py"), "--cli-rank", prefix]
+            + cli_args, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+            stdout=logf, stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            code = p.wait(timeout=SHARD_CHILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+            code = f"killed after {SHARD_CHILD_TIMEOUT_S:.0f} s"
+    seconds = time.perf_counter() - t0
+    with open(log_path) as f:
+        text = f.read()
+    ranks = None
+    if code == 0:
+        ranks = []
+        for r in range(n_ranks):
+            with open(f"{prefix}.rank{r}.json") as f:
+                ranks.append(json.load(f))
+    return {"code": code, "seconds": seconds, "log": text, "ranks": ranks}
 
 
 def metric_losses(agent_dir: str) -> list:
@@ -3027,7 +3190,6 @@ def cli_world_check() -> dict:
     the same config under torchrun on CLI_RANKS ranks -> the numbers
     printed. Raises SystemExit on a failed check."""
     import shutil
-    import signal
 
     import torch
     import yaml
@@ -3059,33 +3221,13 @@ def cli_world_check() -> dict:
         one_launches = read_launches()["scatter_add_rows"]
     finally:
         os.chdir(cwd)
-    prefix = os.path.join(out_dir, "counts")
-    log_path = os.path.join(OUT, "cli_world.log")
-    t0 = time.perf_counter()
-    with open(log_path, "w") as logf:
-        p = subprocess.Popen(
-            [sys.executable, "-m", "torch.distributed.run", "--standalone",
-             f"--nproc_per_node={CLI_RANKS}",
-             os.path.join(ROOT, "chip_smoke.py"), "--cli-rank", prefix,
-             "--config", path, "--output", world],
-            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), stdout=logf,
-            stderr=subprocess.STDOUT, start_new_session=True)
-        try:
-            code = p.wait(timeout=SHARD_CHILD_TIMEOUT_S)
-        except subprocess.TimeoutExpired:
-            os.killpg(p.pid, signal.SIGKILL)
-            p.wait()
-            code = f"killed after {SHARD_CHILD_TIMEOUT_S:.0f} s"
-    world_s = time.perf_counter() - t0
-    with open(log_path) as f:
-        text = f.read()
-    if code != 0:
-        raise SystemExit(f"14c torchrun cli.main: exit {code}\n"
+    w = torchrun_world("cli_world", CLI_RANKS,
+                       ["--config", path, "--output", world])
+    world_s, text = w["seconds"], w["log"]
+    if w["code"] != 0:
+        raise SystemExit(f"14c torchrun cli.main: exit {w['code']}\n"
                          f"{text[-3000:]}")
-    counts = []
-    for r in range(CLI_RANKS):
-        with open(f"{prefix}.rank{r}.json") as f:
-            counts.append(json.load(f))
+    counts = w["ranks"]
     kf = counts[0]["keyframes"]
     iters = CLI_ITERS[0] + (kf - 1) * CLI_ITERS[1]
     leader = os.path.join(world, "world", "agent_0")
@@ -3128,7 +3270,8 @@ def cli_world_check() -> dict:
 
 def fleet_slam_check() -> dict:
     """14d: `MeshAgentFleet.run_slam` for two agents on phase 5's tiny
-    config with the oracle update -> the numbers printed. Raises
+    config with the oracle update -> the numbers printed (with the
+    trajectories, "est_poses", for 14e). Raises
     SystemExit unless kernel 2 ran once per lookup, kernel 1 six times
     per mapping iteration, and both agents' outputs are written and
     finite."""
@@ -3165,7 +3308,7 @@ def fleet_slam_check() -> dict:
     out = {"seconds": sec, "keyframes": [a.tracker.counter for a in agents],
            "mapped": [a.map_counter for a in agents], "iters": iters,
            "lookups": n_look, "launches": launches,
-           "ate_rmse": [r["ate"]["rmse"] for r in res]}
+           "ate_rmse": [r["ate"]["rmse"] for r in res], "est_poses": est}
     problems = [msg for msg, ok in (
         (f"kernel 2 launches {launches['corr_window']} != {n_look} lookups",
          launches["corr_window"] == n_look >= 1),
@@ -3183,6 +3326,337 @@ def fleet_slam_check() -> dict:
     if problems:
         raise SystemExit(f"14d fleet SLAM: {problems}: {out}")
     return out
+
+
+# 14e: the composed fleet, `cli.main --num_agents 2 --device_mesh` under
+# torchrun on FLEET_RANKS ranks (2 agents x 2 row ranks, gloo on cuda:0):
+# configs/Replica/room0_v5e8_fleet.yaml's keys on 14d's box-room segments
+# (keyframe_every 5: 3 keyframes an agent), room0's first_iters 500 and
+# iters 50 cut to FLEET_E_ITERS, terminate's mesh at CLI_MESH_RES, the
+# render in fp32 as in 14c (over several ranks the bf16 partials round
+# per rank: 14a-14b hold the bf16 sums); phase 5's tiny config in SLAM
+# mode with the oracle update on 14d's SLAM segments, row-sharded; and
+# test_torch_fleet.py:94's tiny two-agent setup with loop detection on,
+# row-sharded. Each against the one-slice fleet in this process; maps
+# with 14b's bound (SHARD_PARAM_TOL on all but SHARD_PARAM_SHARE of the
+# elements) beside the one-slice fleet's spread against itself.
+FLEET_RANKS = 4
+FLEET_E_ITERS = (2, 1)
+# 14e's SLAM run maps with phase 5's first_iters 60 and iters 10 cut to
+# these (its check is the oracle trajectory and the launches)
+FLEET_E_SLAM_ITERS = (4, 1)
+FLEET_LOOP_FRAMES = 10
+FLEET_LOOP_SEGMENTS = ((0, 6), (4, 10))
+
+
+def load_yaml_config(path: str, out: str) -> dict:
+    """`cli.main`'s config of a yaml (inherit_from read from the
+    repository's root), its outputs under `out`."""
+    from mneslam_tpu_torch.config import (default_config, deep_update,
+                                          load_config)
+
+    cwd = os.getcwd()
+    os.chdir(ROOT)
+    try:
+        cfg = deep_update(default_config(), load_config(path))
+    finally:
+        os.chdir(cwd)
+    cfg["data"]["output"] = out
+    return cfg
+
+
+def loop_config(out_dir):
+    """tests/test_torch_fleet.py:94's setup (its fleet_overrides with loop
+    detection on, meshing at 0.3 m), row-sharded."""
+    from mneslam_tpu_torch.config import make_config
+
+    return make_config({
+        "mode": "mapping", "dataset": "synthetic",
+        "data": {"output": out_dir, "exp_name": "loop"},
+        "mapping": {
+            "bound": [[-2.2, 2.2]] * 3,
+            "marching_cubes_bound": [[-2.1, 2.1]] * 3,
+            "sample": 256, "min_pixels_cur": 48, "first_iters": 20,
+            "iters": 4, "keyframe_every": 2, "loop_iters": 6,
+            "distill_iters": 4, "lr_rot": 0.01, "lr_trans": 0.01,
+            "shard_plane_rows": True},
+        "planes_res": {"coarse": 0.44, "fine": 0.22,
+                       "bound_dividable": 0.22},
+        "cam": {"H": 40, "W": 56, "fx": 35.0, "fy": 35.0, "cx": 27.5,
+                "cy": 19.5, "near": 0.0, "far": 8.0},
+        "training": {"n_range_d": 9, "n_samples_d": 8, "range_d": 0.25,
+                     "trunc": 0.15},
+        "model": {"c_dim": 16, "input_ch": 32, "input_ch_pos": 48,
+                  "truncation": 0.15},
+        "loop_detection": {"enabled": True, "sim_threshold": 0.9,
+                           "min_time_diff": 50, "loop_launch_th": 2,
+                           "min_matches_for_fusion": 1},
+        "loop_bound": {"bound_0": [[-2.2, 2.2]] * 3,
+                       "bound_1": [[-2.2, 2.2]] * 3},
+        "meshing": {"resolution": 0.3}})
+
+
+def one_slice_fleet(cfg, frames, segments) -> dict:
+    """`MeshAgentFleet.run_mapping_only` in this process on the card ->
+    per agent its mapped keyframes, losses, collaboration counters and
+    parameters (on the host, with their checkpoint keys)."""
+    import copy
+
+    from mneslam_tpu_torch.models.scene_rep import checkpoint_key, param_items
+    from mneslam_tpu_torch.parallel.fleet import MeshAgentFleet
+    from mneslam_tpu_torch.slam import MNESLAM
+
+    agents = [MNESLAM(copy.deepcopy(cfg), Slice(frames, lo, hi), rank=r,
+                      world_size=len(segments), device="cuda")
+              for r, (lo, hi) in enumerate(segments)]
+    fleet = MeshAgentFleet(agents)
+    fleet.run_mapping_only()
+    return [{"mapped": list(a.mapped_timestamps),
+             "losses": [float(m["loss"]) for m in a.metrics_log],
+             "alignments": c.alignments, "accepted": c.closures_accepted,
+             "rejected": c.closures_rejected,
+             "distillations": c.distillations,
+             "params": params_of(a.map_state),
+             "keys": [checkpoint_key(path)
+                      for path, _ in param_items(a.map_state.params)]}
+            for a, c in zip(agents, fleet.collabs)]
+
+
+def composed_fleet_refs(frames) -> dict:
+    """14e's references in this process, before the ranks start: the
+    one-slice fleet twice on the room0_v5e8_fleet run and twice on the
+    loop run (its distance from itself is the card's run-to-run spread);
+    the worlds' yamls and setups."""
+    import yaml
+
+    from mneslam_tpu_torch.data.synthetic import SyntheticBoxDataset
+
+    out_dir = os.path.join(RUN_OUT, "fleet14e")
+    os.makedirs(out_dir, exist_ok=True)
+    segs = [(lo, lo + FLEET_FRAMES) for lo, _ in MA_SEGMENTS]
+    path = os.path.join(out_dir, "fleet.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump({
+            "inherit_from": "configs/Replica/room0_v5e8_fleet.yaml",
+            "dataset": "synthetic", "mode": "mapping",
+            "data": {"exp_name": "fleet"},
+            "mapping": {"first_iters": FLEET_E_ITERS[0],
+                        "iters": FLEET_E_ITERS[1]},
+            "training": {"render_dtype": "float32"},
+            "meshing": {"resolution": CLI_MESH_RES}}, f)
+    cfg = load_yaml_config(path, os.path.join(out_dir, "ref"))
+    refs = {"map": {"yaml": path, "cfg_keys": {
+        k: cfg["mapping"][k] for k in ("shard_plane_rows",
+                                       "shard_gather_every",
+                                       "keyframe_every")},
+        "setup": {"frames": MA_FRAMES, "half": BOX_HALF, "segments": segs,
+                  "oracle": False},
+        "ref": one_slice_fleet(cfg, frames, segs),
+        "again": one_slice_fleet(cfg, frames, segs)}}
+    lcfg = loop_config(os.path.join(out_dir, "loop_ref"))
+    lframes = FrameCache(SyntheticBoxDataset(lcfg,
+                                             num_frames=FLEET_LOOP_FRAMES))
+    lpath = os.path.join(out_dir, "loop.yaml")
+    with open(lpath, "w") as f:
+        yaml.safe_dump(loop_config(out_dir), f)
+    refs["loop"] = {"yaml": lpath, "setup": {
+        "frames": FLEET_LOOP_FRAMES, "half": 2.0,
+        "segments": FLEET_LOOP_SEGMENTS, "oracle": False},
+        "ref": one_slice_fleet(lcfg, lframes, FLEET_LOOP_SEGMENTS),
+        "again": one_slice_fleet(lcfg, lframes, FLEET_LOOP_SEGMENTS)}
+    scfg = tiny_slam_config(out_dir, exp_name="fleet_slam")
+    scfg["distillation"]["use_bound_overlap"] = False
+    scfg["mapping"].update(shard_plane_rows=True,
+                           first_iters=FLEET_E_SLAM_ITERS[0],
+                           iters=FLEET_E_SLAM_ITERS[1])
+    scfg["dataset"] = "synthetic"
+    spath = os.path.join(out_dir, "slam.yaml")
+    with open(spath, "w") as f:
+        yaml.safe_dump(scfg, f)
+    refs["slam"] = {"yaml": spath, "setup": {
+        "frames": FLEET_SLAM_FRAMES, "half": 2.0,
+        "segments": FLEET_SLAM_SEGMENTS, "oracle": True}}
+    return refs
+
+
+def composed_world(tag: str, spec: dict, extra=()) -> dict:
+    """One of 14e's worlds -> its ranks' records with the leaders' files.
+    Raises SystemExit unless every rank exits 0, each leader returns its
+    result and each follower None, and every rank's kernel-1 launches
+    are six per iteration of its slice's map calls (and of its own
+    distillations on a leader), kernel 2's its leader's lookups on a
+    leader and none on a follower."""
+    out = os.path.join(RUN_OUT, "fleet14e", tag)
+    w = torchrun_world(f"fleet14e_{tag}", FLEET_RANKS,
+                       ["--config", spec["yaml"], "--num_agents", "2",
+                        "--device_mesh", "--output", out] + list(extra),
+                       spec["setup"])
+    if w["code"] != 0:
+        raise SystemExit(f"14e {tag}: torchrun exit {w['code']}\n"
+                         f"{w['log'][-4000:]}")
+    ranks = w["ranks"]
+    per = FLEET_RANKS // 2
+    problems = []
+    for r, rec in enumerate(ranks):
+        a, = rec["agents"]
+        lead = ranks[r - r % per]["agents"][0]
+        if a["agent"] != r // per or a["follower"] != bool(r % per) \
+                or (rec["keyframes"] is None) != a["follower"]:
+            problems.append(f"rank {r}: agent {a['agent']}, follower "
+                            f"{a['follower']}, result {rec['keyframes']}")
+        want1 = SCATTERS_PER_ITER * (lead["map_iters"] + (
+            0 if a["follower"] else lead["distill_iters"]))
+        want2 = 0 if a["follower"] else lead["lookups"]
+        got = rec["launches"]
+        if got["scatter_add_rows"] != want1 or got["corr_window"] != want2:
+            problems.append(f"rank {r}: kernel-1 launches "
+                            f"{got['scatter_add_rows']} (expected {want1}),"
+                            f" kernel-2 {got['corr_window']} (expected "
+                            f"{want2})")
+    files = sorted(os.path.relpath(os.path.join(d, f), out)
+                   for d, _, fs in os.walk(out) for f in fs)
+    if problems:
+        raise SystemExit(f"14e {tag}: {problems}\n{w['log'][-3000:]}")
+    return {"seconds": w["seconds"], "ranks": ranks, "out": out,
+            "files": files, "leaders": [ranks[0]["agents"][0],
+                                        ranks[per]["agents"][0]],
+            "ms_per_iter_by_rank": [round(rec["optimize_ms_per_iter"], 1)
+                                    for rec in ranks]}
+
+
+def checkpoint_params(path: str, keys: list) -> list:
+    """A final_checkpoint.npz's parameters under `keys`, in that order."""
+    import numpy as np
+    import torch
+
+    with np.load(path) as data:
+        return [torch.as_tensor(data[k]).float() for k in keys]
+
+
+def composed_fleet_check(refs: dict, fs_est: list) -> dict:
+    """14e: the three worlds, at the same time, against their one-slice
+    references (`refs`, and the trajectories `fs_est` of 14d's SLAM run)
+    -> the numbers printed. Raises SystemExit on a failed check (once
+    every world has ended)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    res = {}
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        jobs = [pool.submit(composed_world, "map", refs["map"]),
+                pool.submit(composed_world, "slam", refs["slam"],
+                            ["--mode", "slam"]),
+                pool.submit(composed_world, "loop", refs["loop"])]
+        m, sl, lp = [j.result() for j in jobs]
+    # mapping-only, room0_v5e8_fleet.yaml's keys
+    ref, again = refs["map"]["ref"], refs["map"]["again"]
+    problems, stats, self_stats, rels = [], [], [], []
+    for i, lead in enumerate(m["leaders"]):
+        params = checkpoint_params(
+            os.path.join(lead["out_dir"], "final_checkpoint.npz"),
+            ref[i]["keys"])
+        stats.append(param_stats(params, ref[i]["params"]))
+        self_stats.append(param_stats(again[i]["params"], ref[i]["params"]))
+        rels += [abs(a - b) / abs(b) for a, b in zip(lead["losses"],
+                                                    ref[i]["losses"])]
+        if lead["mapped"] != ref[i]["mapped"] or len(lead["mapped"]) != 3:
+            problems.append(f"agent {i} mapped {lead['mapped']}, the "
+                            f"one-slice fleet {ref[i]['mapped']}")
+        want_db = sorted([j, int(t)] for j, r in enumerate(ref)
+                         for t in r["mapped"])
+        if lead["db"] != want_db:
+            problems.append(f"agent {i}'s descriptor DB {lead['db']}")
+    n_el = sum(int(t.numel()) for t in ref[0]["params"])
+    share = sum(st["n_beyond"] for st in stats) / (2 * n_el)
+    exp = os.path.relpath(os.path.dirname(m["leaders"][0]["out_dir"]),
+                          m["out"])
+    leaders = tuple(os.path.join(exp, f"agent_{i}", "") for i in (0, 1))
+    expect = {f"{d}{name}" for d in leaders
+              for name in ("metrics.jsonl", "final_checkpoint.npz",
+                           "mesh/final_mesh.ply")}
+    if not expect <= set(m["files"]) or any(
+            not f.startswith(leaders) for f in m["files"]):
+        problems.append(f"files {m['files']}")
+    if not rels or max(rels) > SHARD_LOSS_RTOL:
+        problems.append(f"losses beyond rtol {SHARD_LOSS_RTOL}: {rels}")
+    if share > SHARD_PARAM_SHARE:
+        problems.append(f"parameters beyond {SHARD_PARAM_TOL}: {stats}")
+    res["map"] = {"seconds": m["seconds"], "keys": refs["map"]["cfg_keys"],
+                  "mapped": [ld["mapped"] for ld in m["leaders"]],
+                  "max_rel_loss_diff": max(rels) if rels else None,
+                  "params": [{k: st[k] for k in ("max_param_diff",
+                                                 "n_beyond")}
+                             for st in stats],
+                  "one_slice_vs_itself": [{k: st[k] for k in (
+                      "max_param_diff", "n_beyond")} for st in self_stats],
+                  "share_beyond": share, "files": m["files"],
+                  "launches_by_rank": [r["launches"]["scatter_add_rows"]
+                                       for r in m["ranks"]],
+                  "ms_per_iter_by_rank": m["ms_per_iter_by_rank"]}
+    if problems:
+        raise SystemExit(f"14e mapping-only: {problems}: {res['map']}")
+
+    # SLAM with the oracle update, against 14d's one-slice fleet
+    moved = []
+    for i, lead in enumerate(sl["leaders"]):
+        est = np.load(os.path.join(lead["out_dir"], "est_poses.npy"))
+        ref_est = fs_est[i]
+        if not np.isfinite(est).all() or est.shape != ref_est.shape:
+            raise SystemExit(f"14e SLAM: agent {i}'s trajectory {est.shape}"
+                             f" against {ref_est.shape}")
+        moved.append(float(np.abs(est[:, :3, 3] - ref_est[:, :3, 3]).max()))
+    res["slam"] = {"seconds": sl["seconds"],
+                   "keyframes": [ld["mapped"] for ld in sl["leaders"]],
+                   "lookups": [ld["lookups"] for ld in sl["leaders"]],
+                   "launches_by_rank": [
+                       {k: r["launches"][k] for k in ("scatter_add_rows",
+                                                      "corr_window")}
+                       for r in sl["ranks"]],
+                   "max_trans_diff_vs_one_slice_m": moved,
+                   "mapping_iters_cut_to": list(FLEET_E_SLAM_ITERS),
+                   "ms_per_iter_by_rank": sl["ms_per_iter_by_rank"]}
+    if max(moved) > ORACLE_TOL_M:
+        raise SystemExit(f"14e SLAM: trajectories {moved} m from the "
+                         f"one-slice fleet's (limit {ORACLE_TOL_M})")
+
+    # loop detection on: peer maps fetched across slices, distillations
+    lref, lagain = refs["loop"]["ref"], refs["loop"]["again"]
+    problems, lstats, lself = [], [], []
+    for i, lead in enumerate(lp["leaders"]):
+        for k in ("mapped", "alignments", "accepted", "rejected",
+                  "distillations"):
+            if lead[k] != lref[i][k]:
+                problems.append(f"agent {i} {k} {lead[k]}, the one-slice "
+                                f"fleet {lref[i][k]}")
+        params = checkpoint_params(
+            os.path.join(lead["out_dir"], "final_checkpoint.npz"),
+            lref[i]["keys"])
+        lstats.append(param_stats(params, lref[i]["params"]))
+        lself.append(param_stats(lagain[i]["params"], lref[i]["params"]))
+    received = [ld["maps_received"] for ld in lp["leaders"]]
+    if sum(received) < 1 or min(ld["distillations"]
+                                for ld in lp["leaders"]) < 1:
+        problems.append(f"peer maps received {received}, distillations "
+                        f"{[ld['distillations'] for ld in lp['leaders']]}")
+    if any(st["share_beyond"] > SHARD_PARAM_SHARE for st in lstats):
+        problems.append(f"maps after the fusion beyond {SHARD_PARAM_TOL} "
+                        f"of the one-slice fleet's: {lstats}")
+    res["loop"] = {"seconds": lp["seconds"], "maps_received": received,
+                   **{k: [ld[k] for ld in lp["leaders"]] for k in (
+                       "alignments", "accepted", "rejected",
+                       "distillations")},
+                   "params_after_fusion": [
+                       {k: st[k] for k in ("max_param_diff", "n_beyond")}
+                       for st in lstats],
+                   "one_slice_vs_itself": [
+                       {k: st[k] for k in ("max_param_diff", "n_beyond")}
+                       for st in lself],
+                   "launches_by_rank": [r["launches"]["scatter_add_rows"]
+                                        for r in lp["ranks"]]}
+    if problems:
+        raise SystemExit(f"14e loop run: {problems}: {res['loop']}")
+    res["seconds"] = time.perf_counter() - t0
+    return res
 
 
 def device_mesh_cli() -> tuple:
@@ -3358,7 +3832,7 @@ def shard_phase(card) -> dict:
         f"{MA_SEGMENTS[1][0]}-{MA_SEGMENTS[1][0] + FLEET_FRAMES - 1} of "
         f"12c's trajectory, first_iters cut to {FLEET_FIRST_ITERS}, "
         f"loop_iters to {FLEET_LOOP_ITERS}, fusion off")
-    fl = fleet_check(card)
+    frames, fl = fleet_check(card)
     log(f"14d fleet vs runner: {json.dumps(fl)} on {card}")
     problems = [msg for msg, ok in (
         (f"losses beyond rtol {SHARD_LOSS_RTOL} of the runner's",
@@ -3372,23 +3846,31 @@ def shard_phase(card) -> dict:
     if problems:
         raise SystemExit(f"14d fleet: {problems}")
     fs = fleet_slam_check()
+    fs_est = fs.pop("est_poses")
     log(f"14d fleet SLAM (phase 5's tiny config, oracle update, two agents "
         f"on frames {FLEET_SLAM_SEGMENTS} of {FLEET_SLAM_FRAMES}): "
         f"{json.dumps(fs)}")
     steps["14d in process"] = time.perf_counter() - t14 - sum(
         steps.values())
+    # 14e's one-slice references, on the quiet card too
+    refs = composed_fleet_refs(frames)
+    del frames
+    steps["14e references"] = time.perf_counter() - t14 - sum(
+        steps.values())
 
-    # then the child processes of 14b, 14c and 14d's CLI, all at once
-    # (their times are no speeds: gloo through host memory, process
+    # then the child processes of 14b, 14c, 14d's CLI and 14e, all at
+    # once (their times are no speeds: gloo through host memory, process
     # starts); a failed job raises here once every job has ended
     torch.cuda.empty_cache()
     b_spec = dict(spec, runs=[r for _, r, _, _ in b_runs])
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         jobs = [pool.submit(spawn_ranks, "shard14b", b_spec, SHARD_RANKS,
                             "gloo"),
-                pool.submit(cli_world_check), pool.submit(device_mesh_cli)]
-        b, cw, (code, cli_s, missing, tail) = [j.result() for j in jobs]
-    steps["14b, 14c, 14d cli"] = time.perf_counter() - t14 - sum(
+                pool.submit(cli_world_check), pool.submit(device_mesh_cli),
+                pool.submit(composed_fleet_check, refs, fs_est)]
+        b, cw, (code, cli_s, missing, tail), ce = [j.result()
+                                                   for j in jobs]
+    steps["14b, 14c, 14d cli, 14e"] = time.perf_counter() - t14 - sum(
         steps.values())
     b_out = {}
     for j, (name, _, ref_losses, gtol) in enumerate(b_runs):
@@ -3444,6 +3926,16 @@ def shard_phase(card) -> dict:
     if code != 0 or missing:
         raise SystemExit(f"14d cli --device_mesh failed: exit {code}, "
                          f"missing {missing}\n{tail[0]}\n{tail[1]}")
+    log(f"14e torchrun --nproc_per_node={FLEET_RANKS} -m mneslam_tpu_torch."
+        f"cli --num_agents 2 --device_mesh (2 agents x 2 row ranks on "
+        f"cuda:0 over gloo, beside 14b, 14c and 14d's CLI; ms per iteration "
+        f"by rank: gloo through host memory, not a collective's speed): "
+        f"configs/Replica/room0_v5e8_fleet.yaml's keys on 14d's segments, "
+        f"first_iters and iters cut to {list(FLEET_E_ITERS)}, fp32 render: "
+        f"{json.dumps(ce['map'])}; SLAM on phase 5's tiny config (oracle "
+        f"update) against 14d's one-slice fleet: {json.dumps(ce['slam'])}; "
+        f"loop detection on (test_torch_fleet.py:94's setup): "
+        f"{json.dumps(ce['loop'])}; 14e {ce['seconds']:.1f} s on {card}")
     t14 = time.perf_counter() - t14
     log(f"phase 14 {t14:.1f} s of its budget of {SHARD_BUDGET_S:.0f} s"
         + (": OVER BUDGET, cut its iterations or frames"
@@ -3454,7 +3946,7 @@ def shard_phase(card) -> dict:
             "plain32": plain32,
             "plain_self": plain_self, "a": a_sync, "a_ge8": a_ge8,
             "a_sync32": a_sync32, "b": b_out, "cli_world": cw, "fleet": fl,
-            "fleet_slam": fs, "cli_s": cli_s,
+            "fleet_slam": fs, "cli_s": cli_s, "composed": ce,
             "launches": {"row_sharded_1rank_nccl": a_sync["launches"]
                          + a_ge8["launches"] + a_sync32["launches"]
                          + a_g16["launches"],
@@ -3467,16 +3959,26 @@ def shard_phase(card) -> dict:
                          "mesh_fleet": fl["launches"],
                          "mesh_fleet_slam": fs["launches"][
                              "scatter_add_rows"],
+                         "composed_fleet_by_rank": [
+                             a + b + c for a, b, c in zip(
+                                 ce["map"]["launches_by_rank"],
+                                 [r["scatter_add_rows"] for r in
+                                  ce["slam"]["launches_by_rank"]],
+                                 ce["loop"]["launches_by_rank"])],
                          "plain_references": plain["launches"]
                          + plain32["launches"] + again32["launches"]},
             "corr_launches": {"mesh_fleet_slam":
-                              fs["launches"]["corr_window"]}}
+                              fs["launches"]["corr_window"],
+                              "composed_fleet_slam_by_rank": [
+                                  r["corr_window"] for r in
+                                  ce["slam"]["launches_by_rank"]]}}
 
 
 def main():
     import numpy as np
     import torch
 
+    t_all = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -3841,6 +4343,7 @@ def main():
     # 9. the same path with MNESLAM_CORR_IMPL=pallas_mxu: kernel 2b
     # (its terminate meshes the box room's bound only: phase 8 meshes the
     # whole room0 bound)
+    t9 = time.perf_counter()
     with corr_impl("pallas_mxu"):
         mslam, _, mres, mseconds, mlaunches, mrec = slam_main_path(
             MXU_FRAMES, "room0_slam_mxu",
@@ -3860,6 +4363,8 @@ def main():
         raise SystemExit(f"pallas_mxu path: expected {m_lookups} kernel-2b "
                          f"launches, none of kernels 2 and 3, loop and global "
                          f"BA: {mlaunches}")
+    log(f"phase 9 {time.perf_counter() - t9:.1f} s for {MXU_FRAMES} frames "
+        f"(32 before 14e was added)")
 
     # 10. kernels against their plain versions at the main path's shapes
     # (a) the contract cases: forced duplicates, untouched rows, dropped
@@ -4048,6 +4553,9 @@ def main():
                   if k[key] is None]
     if unmeasured:
         raise SystemExit(f"kernel numbers not measured: {unmeasured}")
+    log(f"chip_smoke.py {time.perf_counter() - t_all:.1f} s in all, the "
+        f"build included (before 14e: about 800 s, phase 12 200.3 s, "
+        f"phase 14 110.3 s; PERF.md section 6)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,11 +32,24 @@ class LoopDetector:
         """frame_rgb [H, W, 3] in [0, 1] (tensor or array) -> the best
         match {match_kf_id, match_agent_id, similarity} or None; the
         frame's descriptor is published either way."""
+        des = self.describe(frame_rgb)
+        loop_info = self.match(des, current_kf_id, current_agent_id)
+        self.comms.add_descriptor({"descriptor": des,
+                                   "kf_id": int(current_kf_id),
+                                   "agent_id": int(current_agent_id)})
+        return loop_info
+
+    def describe(self, frame_rgb) -> np.ndarray:
+        """The frame's descriptor as a host array."""
         des = self.descriptor_fn(frame_rgb)
         if isinstance(des, torch.Tensor):
             des = des.detach().cpu().numpy()
-        des = np.asarray(des)
+        return np.asarray(des)
 
+    def match(self, des: np.ndarray, current_kf_id: int,
+              current_agent_id: int) -> Optional[Dict]:
+        """The best match of a descriptor in the DB (`detect_and_add`'s
+        search, which publishes nothing) or None."""
         loop_info = None
         db = self.comms.descriptors()
         if len(db) >= self.loop_launch_th:
@@ -59,10 +72,6 @@ class LoopDetector:
                 loop_info = {"match_kf_id": db[best_idx]["kf_id"],
                              "match_agent_id": db[best_idx]["agent_id"],
                              "similarity": best_score}
-
-        self.comms.add_descriptor({"descriptor": des,
-                                   "kf_id": int(current_kf_id),
-                                   "agent_id": int(current_agent_id)})
         return loop_info
 
 

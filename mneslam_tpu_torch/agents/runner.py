@@ -138,6 +138,20 @@ class AgentCollaboration:
                                      kf_timestamps)
         return info
 
+    def peer_needed(self, info: Dict, current_map_id: int) -> Optional[int]:
+        """The agent whose map `handle_loop_closure(info, current_map_id)`
+        would load (`_load_foreign`), or None when it returns before: the
+        same checks, with no side effect. The mesh fleet's leaders fetch
+        that map before the hook runs (`parallel/fleet.ComposedFleet`)."""
+        other = int(info["match_agent_id"])
+        if (other, current_map_id) in self.fused_frame_ids:
+            return None
+        other_kfs = self.comms.get_keyframes(other)
+        if other_kfs is None or not np.any(other_kfs[1]
+                                           == info["match_kf_id"]):
+            return None
+        return other
+
     def handle_loop_closure(self, info: Dict, current_map_id: int, cur_c2w,
                             kf_poses_c2w: np.ndarray,
                             kf_timestamps: np.ndarray):
@@ -264,14 +278,47 @@ class AgentCollaboration:
 
     def bound_based_fusion(self):
         """Distil every overlapping agent's map into this one along its
-        keyframes that mutually match this agent's, then write the fused
-        mesh."""
+        keyframes that mutually match this agent's (`fusion_plan`), then
+        write the fused mesh."""
+        slam = self.slam
+        cfg = slam.config
+        for other, expand in self.fusion_plan():
+            f_scene, f_params = self._load_foreign(other)
+            if f_params is None:
+                continue
+            foreign_poses = torch.as_tensor(
+                np.stack([k["pose"] for k in expand]).astype(np.float32),
+                device=self.device)
+            rays_d_cam = torch.as_tensor(self._rays_d_cam(),
+                                         device=self.device)
+            rays_per_kf = max(int(cfg["mapping"]["sample"]) // len(expand),
+                              int(cfg["mapping"]["min_pixels_cur"]))
+            _, loss = fusion.distill(
+                f_scene, f_params, slam.mapper, slam.map_state,
+                foreign_poses, rays_d_cam,
+                generator=torch.Generator(device=self.device).manual_seed(
+                    17 + other),
+                iters=int(cfg["mapping"]["distill_iters"]),
+                rays_per_kf=rays_per_kf)
+            self.distillations += 1
+            print(f"[agent {slam.rank}] distilled from agent {other}: "
+                  f"{len(expand)} kfs, final loss {float(loss):.4f}")
+            self._save_fused_mesh()
+
+    def fusion_plan(self) -> List:
+        """The distillations `bound_based_fusion` runs, in order: (other
+        agent, its keyframes {kf_id, pose} to distil along) for every agent
+        whose bound overlaps this one's and whose keyframes in the overlap
+        mutually match this agent's more than `min_matches_for_fusion`
+        times. Reads the exchanged keyframes and descriptors only, so a
+        distillation never changes the plan."""
         slam = self.slam
         cfg = slam.config
         if not cfg.get("distillation", {}).get("use_bound_overlap", True):
-            return
+            return []
         if slam.world_size <= 1:
-            return
+            return []
+        plan = []
         min_matches = cfg.get("loop_detection", {}).get(
             "min_matches_for_fusion", 3)
         candidates = self.fused_agents or (set(range(slam.world_size))
@@ -308,30 +355,9 @@ class AgentCollaboration:
             fids = [m["foreign_kf_id"] for m in matches]
             expand = [k for k in foreign_in
                       if min(fids) <= k["kf_id"] <= max(fids)]
-            if not expand:
-                continue
-
-            f_scene, f_params = self._load_foreign(other)
-            if f_params is None:
-                continue
-            foreign_poses = torch.as_tensor(
-                np.stack([k["pose"] for k in expand]).astype(np.float32),
-                device=self.device)
-            rays_d_cam = torch.as_tensor(self._rays_d_cam(),
-                                         device=self.device)
-            rays_per_kf = max(int(cfg["mapping"]["sample"]) // len(expand),
-                              int(cfg["mapping"]["min_pixels_cur"]))
-            _, loss = fusion.distill(
-                f_scene, f_params, slam.mapper, slam.map_state,
-                foreign_poses, rays_d_cam,
-                generator=torch.Generator(device=self.device).manual_seed(
-                    17 + other),
-                iters=int(cfg["mapping"]["distill_iters"]),
-                rays_per_kf=rays_per_kf)
-            self.distillations += 1
-            print(f"[agent {slam.rank}] distilled from agent {other}: "
-                  f"{len(expand)} kfs, final loss {float(loss):.4f}")
-            self._save_fused_mesh()
+            if expand:
+                plan.append((other, expand))
+        return plan
 
     def _save_fused_mesh(self):
         """The fused map's mesh, `mesh/fused_mesh.ply`; a meshing failure

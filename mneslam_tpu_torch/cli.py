@@ -24,16 +24,21 @@ protocol (each child gets the parent's `--device`).
 `--device_mesh` runs the agents as one mesh fleet
 (`parallel/fleet.MeshAgentFleet`): on one device every agent sits in one
 slice, and each round maps every agent's pending keyframe in one
-super-step. A fleet over several ranks (agents x row groups) is not
-ported: it raises.
+super-step.
 
 Under `torchrun --nproc_per_node=N` (WORLD_SIZE > 1) the ranks form one
 world (`parallel/mesh.init_world`: NCCL with cuda:LOCAL_RANK when every
 rank has a GPU of its own, gloo for `--device cpu` or for more ranks than
-GPUs; the choice is printed) and run one agent whose mapper is row-sharded
-over every rank (`mapping.shard_plane_rows` must be set): rank 0 leads the
-run and writes every output, the other ranks follow its map calls. One
-process starts no world. Port of `mneslam_tpu/cli.py`.
+GPUs; the choice is printed). With `--device_mesh` the world runs the
+composed fleet, agents x row groups: every rank builds the mesh once
+(`parallel/mesh.make_mesh(num_agents)`, R ranks a slice), rank r builds
+agent r // R from its config, the slice's first rank leads the agent
+(the fleet's rounds, every output of `agent_<id>/`; it prints `agent
+<id>: <result>`) and the others follow its map calls, row-sharded over the
+slice with `mapping.shard_plane_rows`. Without `--device_mesh` the world
+runs one agent whose mapper is row-sharded over every rank
+(`mapping.shard_plane_rows` must be set): rank 0 leads, the other ranks
+follow. One process starts no world. Port of `mneslam_tpu/cli.py`.
 """
 
 from __future__ import annotations
@@ -86,21 +91,61 @@ def _load_config(args, path):
     return cfg
 
 
+def _fleet_world(args, rank: int, device: str):
+    """The composed fleet over a world of ranks: this rank's agent, led
+    through `parallel/fleet.ComposedFleet` on the slice's first rank,
+    following its leader's map calls on the others -> the leader's
+    result (None on a follower)."""
+    from .data.datasets import get_dataset
+    from .parallel import fleet as pfleet
+    from .parallel.mesh import make_mesh
+    from .slam import MNESLAM
+
+    n = args.num_agents
+    mesh = make_mesh(n)
+    agent = rank // int(mesh.shape["ray"])
+    cfg = _load_config(args, derive_agent_config(args.config, agent)
+                       if n > 1 else args.config)
+    pfleet.composed_layout(mesh, n, bool(cfg["mapping"].get(
+        "shard_plane_rows", False)))
+    slam = MNESLAM(cfg, get_dataset(cfg), rank=agent, device=device,
+                   world_size=n, mesh=mesh)
+    if args.resume:
+        slam.load_full_state(args.resume if n == 1
+                             else f"{args.resume}.agent{agent}")
+    if slam.follower:
+        slam.follow()
+        return None
+    try:
+        fleet = pfleet.ComposedFleet([slam], mesh=mesh, n_agents=n)
+        if slam.mode == "mapping":
+            fleet.run_mapping_only()
+            result = slam.terminate()
+        else:
+            result = fleet.run_slam()[0]
+    finally:
+        slam.release_followers()
+    print(f"agent {agent}: {result}")
+    return result
+
+
 def _row_sharded_world(args, rank: int, device: str):
     """One agent over a world of ranks: rank 0 runs it with the
     row-sharded mapper, the others follow its map calls -> rank 0's
     result (None on a follower)."""
     from .agents.runner import MultiAgentRunner
     from .data.datasets import get_dataset
-    from .parallel.fleet import require_one_slice
     from .slam import MNESLAM
 
-    if args.device_mesh:
-        require_one_slice()
-    if args.num_agents > 1 or args.spawn or args.file_comms:
+    if args.spawn or args.file_comms:
         raise NotImplementedError(
-            "several agents over a world of ranks (the composed agent x "
-            "rows fleet) are not ported: ROADMAP.md Queue 1 item 4b")
+            "--spawn and --file_comms run one process per agent, without "
+            "torchrun; several agents over a world of ranks run as the "
+            "mesh fleet (--device_mesh)")
+    if args.num_agents > 1:
+        raise NotImplementedError(
+            "several agents over a world of ranks run as the mesh fleet: "
+            "pass --device_mesh")
     cfg = _load_config(args, args.config)
     if not bool(cfg["mapping"].get("shard_plane_rows", False)):
         raise ValueError("a world of several ranks runs the row-sharded "
@@ -160,6 +205,8 @@ def main(argv=None):
     rank, world, device = init_world(args.device)
     if world > 1:
         try:
+            if args.device_mesh and not (args.spawn or args.file_comms):
+                return _fleet_world(args, rank, device)
             return _row_sharded_world(args, rank, device)
         finally:
             if started_here:

@@ -13,11 +13,12 @@ lr_decoder with weight decay 1e-6 (PyTorch's coupled L2, the same as
 with eps 1e-15.
 
 With a `parallel.mesh.Mesh` of several ranks the loop runs on every rank
-in lockstep (one process per shard, the per-device body of the JAX
-`shard_map` programs). Every rank draws the whole ray batch from the same
-generator and renders its contiguous block of it, with the losses summed
-over the ranks (`SceneRep.forward(group=...)`), and differentiates the
-global loss / ranks (the backward of a sum over ranks is again a sum):
+of its shard group (`shard_axes`) in lockstep (one process per shard, the
+per-device body of the JAX `shard_map` programs). Every rank draws the
+whole ray batch from the same generator and renders its contiguous block
+of it, with the losses summed over the ranks (`SceneRep.forward(group=
+...)`), and differentiates the global loss / ranks (the backward of a sum
+over ranks is again a sum):
 
 - ray-sharded (`mesh` alone): the parameters stay replicated; the plane
   and decoder gradients are all-reduced;
@@ -78,13 +79,17 @@ def make_optimizer(config, params: Dict) -> torch.optim.Adam:
 class Mapper:
     def __init__(self, config, scene: SceneRep, num_kf: int,
                  rays_per_kf: int, mesh: Optional[mesh_lib.Mesh] = None,
-                 shard_plane_rows: bool = False):
-        """`mesh`: shard each iteration's ray batch over every rank of the
-        mesh (the ranks call `optimize` in lockstep with equal inputs).
-        `shard_plane_rows` (with a mesh): also shard the planes, their
-        Adam moments and the gradient fold over table rows, over every
-        rank of the mesh. The ray counts round up to a multiple of the
-        shard count, so the batch splits evenly."""
+                 shard_plane_rows: bool = False,
+                 shard_axes: Optional[Sequence[str]] = None):
+        """`mesh`: shard each iteration's ray batch over the ranks of the
+        mesh's `shard_axes` (default: every axis; the ranks call
+        `optimize` in lockstep with equal inputs). `shard_plane_rows`
+        (with a mesh): also shard the planes, their Adam moments and the
+        gradient fold over table rows, over the same ranks. The mesh
+        fleet passes shard_axes=("ray",): each agent slice shards over
+        its own `ray` group, and the `agent` axis carries the agents
+        (`mneslam_tpu/mapping/mapper.py:58-110`). The ray counts round up
+        to a multiple of the shard count, so the batch splits evenly."""
         if float(config["training"].get("smooth_weight", 0.0)) > 0.0:
             raise ValueError("training.smooth_weight > 0 (the smoothness "
                              "loss) is not ported")
@@ -97,9 +102,11 @@ class Mapper:
         self.n_cur = int(config["mapping"]["min_pixels_cur"])
         self.mesh = mesh
         self.shard_rows = bool(shard_plane_rows) and mesh is not None
+        self.shard_axes = (tuple(shard_axes) if shard_axes is not None
+                           else mesh.axis_names if mesh is not None else ())
         self.group = None
         if mesh is not None:
-            self.group = mesh.group(mesh.axis_names)
+            self.group = mesh.group(self.shard_axes)
             n = self.group.size
             self.n_global = -(-self.n_global // n) * n
             self.n_cur = -(-self.n_cur // n) * n

@@ -9,6 +9,10 @@ the named-axis collectives mapped one to one:
     lax.psum         -> all_reduce, all_reduce_sum (differentiable)
     lax.axis_index   -> AxisGroup.index
 
+and, for the host loops of the agents' leaders (`parallel/fleet.py`),
+`broadcast` from any index of a group and `all_gather_values`, a small
+all-gather of host metadata.
+
 Transport, chosen from the world's backend when it starts (`init_world`,
 `transport_of`) and never after a failure: under NCCL the collectives take
 device tensors as they are; under gloo every tensor is copied to host
@@ -111,14 +115,28 @@ def all_reduce(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
     return xs.to(x.device)
 
 
-def broadcast(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
-    """Index 0's `x` on every rank (the others pass a tensor of the same
-    shape and dtype to receive into) -> a tensor on x's device."""
+def broadcast(x: torch.Tensor, group: AxisGroup,
+              root: int = 0) -> torch.Tensor:
+    """The `x` of the group's index `root` on every rank (the others pass
+    a tensor of the same shape and dtype to receive into) -> a tensor on
+    x's device."""
     if group.is_local:
         return x
+    src = group.src if root == 0 else dist.get_global_rank(group.pg, root)
     xs = _to_host(x, group).clone(memory_format=torch.contiguous_format)
-    dist.broadcast(xs, src=group.src, group=group.pg)
+    dist.broadcast(xs, src=src, group=group.pg)
     return xs.to(x.device)
+
+
+def all_gather_values(values: Sequence, group: AxisGroup,
+                      dtype=torch.int64) -> torch.Tensor:
+    """Host metadata exchange: every rank's `values` (numbers, the same
+    count on every rank: flags, counts, frame ids, packed poses) -> a
+    [size, n] tensor on the host, in rank order."""
+    x = torch.as_tensor(values, dtype=dtype).reshape(1, -1)
+    if group.transport == "device" and not group.is_local:
+        x = x.to(torch.device("cuda", torch.cuda.current_device()))
+    return all_gather_rows(x, group).cpu()
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -215,6 +233,13 @@ class Mesh:
             raise ValueError(f"axes {tuple(axes)} of mesh "
                              f"{self.axis_names}")
         return self._groups[key]
+
+    def leaders(self) -> AxisGroup:
+        """The agent slices' leaders (ray index 0 of every slice): on a
+        leader, its `agent` group."""
+        if self.group(("ray",)).index != 0:
+            raise ValueError(f"rank {self.rank} follows its slice's leader")
+        return self.group(("agent",))
 
     def __repr__(self):
         return f"Mesh({self.shape}, rank {self.rank}, {self.transport})"

@@ -40,16 +40,22 @@ run resumed from it continues as the uninterrupted run would
 (`cli --resume`). As in the JAX package, the factor graph's edges and the
 motion filter's last features are not in it.
 
-With `mapping.shard_plane_rows` in a world of several ranks
-(`torch.distributed`, started by `cli.main` under `torchrun`) the mapper
-is the row-sharded one over every rank (`parallel/mesh.py`). Rank 0 is
-the leader: it runs the agent (dataset, tracking, backend, bookkeeping,
-terminate, every output file). Every other rank is a follower (`follow`):
-it runs only the collective `Mapper.optimize`, in lockstep, receiving
-from the leader before each map call the keyframe's frame and pose, the
+In a world of several ranks (`torch.distributed`, started by `cli.main`
+under `torchrun`) an agent runs on its slice of the ranks: a `ray` group
+of the fleet's mesh (`mesh`, `parallel/mesh.make_mesh(n_agents)`), or,
+for one agent with `mapping.shard_plane_rows` and no mesh given, the
+whole world. With `mapping.shard_plane_rows` and more than one rank in
+the slice the mapper is the row-sharded one over the slice
+(`parallel/mesh.py`). The slice's ray index 0 is the leader: it runs the
+agent (dataset, tracking, backend, bookkeeping, terminate, every output
+file). Every other rank of the slice is a follower (`follow`): it runs
+only the collective `Mapper.optimize`, in lockstep, receiving from the
+leader before each map call the keyframe's frame and pose, the
 keyframe-DB slots written since the last call and the count, the
-keyframe poses, the iteration count and the mapper generator's state.
-Every process seeds the agent's generators by the agent's rank.
+keyframe poses, the iteration count and the mapper generator's state;
+without row sharding it waits for the leader's release. Every process
+seeds the agent's generators by the agent's id (`rank`), never by its
+process rank.
 
 Multi-agent hooks (`agents/runner.py`): `world_size`, and `collab`, set
 by `MultiAgentRunner`, whose `on_keyframe_mapped` runs after every mapped
@@ -108,7 +114,8 @@ def _refresh_kf_poses_batched(kf_poses: torch.Tensor,
 class MNESLAM:
     def __init__(self, config: Dict, dataset, rank: int = 0,
                  device="cuda", droid_params: Optional[Dict] = None,
-                 update_fn=None, agg_fn=None, world_size: int = 1):
+                 update_fn=None, agg_fn=None, world_size: int = 1,
+                 mesh: Optional[mesh_lib.Mesh] = None):
         self.device = resolve_device(device)
         self.config = config
         self.dataset = dataset
@@ -119,14 +126,16 @@ class MNESLAM:
             raise ValueError(f"mode {self.mode!r}: mneslam_tpu_torch runs "
                              "mode 'mapping' or 'slam'")
 
-        # mapping.shard_plane_rows on a world of several ranks: the
-        # row-sharded mapper over all of them, rank 0 the leader
-        self.map_mesh = None
-        if (bool(config["mapping"].get("shard_plane_rows", False))
-                and torch.distributed.is_initialized()
+        # the agent's slice of the world's ranks: the fleet's `ray` group,
+        # or every rank for one row-sharded agent; its index 0 leads
+        rows = bool(config["mapping"].get("shard_plane_rows", False))
+        if (mesh is None and rows and torch.distributed.is_initialized()
                 and torch.distributed.get_world_size() > 1):
-            self.map_mesh = mesh_lib.make_mesh(1)
-        self.follower = self.map_mesh is not None and self.map_mesh.rank > 0
+            mesh = mesh_lib.make_mesh(1)
+        self.slice = (mesh.group(("ray",)) if mesh is not None
+                      else mesh_lib.LOCAL)
+        self.map_mesh = mesh if rows and self.slice.size > 1 else None
+        self.follower = self.slice.index > 0
         self._synced_kf = 0        # keyframe-DB slots the followers hold
         self._released = False
 
@@ -147,7 +156,8 @@ class MNESLAM:
         self.mapper = Mapper(config, self.scene, num_kf=num_kf,
                              rays_per_kf=dataset.num_rays_to_save,
                              mesh=self.map_mesh,
-                             shard_plane_rows=self.map_mesh is not None)
+                             shard_plane_rows=self.map_mesh is not None,
+                             shard_axes=("ray",))
         self.map_state = self.mapper.init_state(
             make_generator(self.device, 42 + rank))
         self.generator = make_generator(self.device, 1000 + rank)
@@ -248,7 +258,7 @@ class MNESLAM:
         return metrics
 
     # ------------------------------------------------------------------
-    # the row-sharded world: leader and followers
+    # the agent's slice of the ranks: leader and followers
     # ------------------------------------------------------------------
 
     _HEADER = 7  # op, iters, use_cur, first new DB slot, count, H, W
@@ -256,10 +266,10 @@ class MNESLAM:
     def _lead(self, frame: Dict, pose_c2w: torch.Tensor, iters: int,
               use_cur: bool = True):
         """Leader: broadcast what the next collective `optimize` needs
-        (a no-op without followers)."""
-        if self.map_mesh is None or self.map_mesh.size == 1:
+        (a no-op without a sharded mapper)."""
+        if self.map_mesh is None:
             return
-        group = self.mapper.group
+        group = self.slice
         db = self.map_state.db
         H, W = frame["depth"].shape
         lo = self._synced_kf
@@ -275,11 +285,10 @@ class MNESLAM:
 
     def release_followers(self):
         """Leader: tell the followers the run has ended (once)."""
-        if self.map_mesh is None or self.map_mesh.size == 1 \
-                or self.follower or self._released:
+        if self.slice.size == 1 or self.follower or self._released:
             return
         mesh_lib.broadcast(torch.zeros(self._HEADER, dtype=torch.int64,
-                                       device=self.device), self.mapper.group)
+                                       device=self.device), self.slice)
         self._released = True
 
     def follow(self):
@@ -289,9 +298,9 @@ class MNESLAM:
         the mapper generator's state, then runs the collective optimize;
         the maps of every rank stay equal."""
         if not self.follower:
-            raise RuntimeError("follow() runs on a follower rank (rank > 0 "
-                               "of a row-sharded world)")
-        group, dev = self.mapper.group, self.device
+            raise RuntimeError("follow() runs on a follower rank (ray index "
+                               "> 0 of an agent's slice)")
+        group, dev = self.slice, self.device
 
         def recv(shape, dtype):
             return mesh_lib.broadcast(

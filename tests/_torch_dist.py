@@ -12,7 +12,9 @@ fails or hangs. Imports no JAX: the ranks run the port alone.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
+import io
 import os
 import subprocess
 import sys
@@ -99,9 +101,10 @@ def case_seam(rank, world, p):
     return out
 
 
-def _mapper_from_run(run, rows: bool, mesh: bool):
+def _mapper_from_run(run, rows: bool, mesh, shard_axes=None):
     """The port's mapper and state of `run` (see `run_optimize`), before
-    its first call's keyframe DB is loaded."""
+    its first call's keyframe DB is loaded. `mesh`: a `Mesh`, True (every
+    rank in one slice) or False."""
     from mneslam_tpu_torch.config import make_config
     from mneslam_tpu_torch.mapping.mapper import Mapper, make_optimizer
     from mneslam_tpu_torch.models.scene_rep import SceneRep
@@ -109,10 +112,11 @@ def _mapper_from_run(run, rows: bool, mesh: bool):
     from mneslam_tpu_torch.utils.convert import params_from_jax
 
     cfg = make_config(run["overrides"])
+    if mesh is True:
+        mesh = pm.make_mesh(1)
     m = Mapper(cfg, SceneRep(cfg, "cpu"), num_kf=run["num_kf"],
-               rays_per_kf=run["rays_per_kf"],
-               mesh=pm.make_mesh(1) if mesh else None,
-               shard_plane_rows=rows)
+               rays_per_kf=run["rays_per_kf"], mesh=mesh or None,
+               shard_plane_rows=rows, shard_axes=shard_axes)
     st = m.init_state(torch.Generator().manual_seed(0))
     st.params = params_from_jax(run["params"])
     st.optimizer = make_optimizer(cfg, st.params)
@@ -131,17 +135,19 @@ def _load_call(st, call):
     return frame, torch.tensor(call["pose"]), draws
 
 
-def run_optimize(run, rows: bool = True, mesh: bool = True) -> dict:
+def run_optimize(run, rows: bool = True, mesh=True,
+                 shard_axes=None) -> dict:
     """The port's mapper from `run["params"]` (a JAX params tree), then
     `optimize` once per entry of `run["calls"]` on that call's keyframe
     DB, keyframe poses, frame and pose, with its replayed draws (one
     (g_idx, c_idx, u) per iteration) -> per-call metrics, the parameters
-    and Adam's step per leaf. `mesh`: over every rank of the world
-    (row-sharded with `rows`, else ray-sharded)."""
+    and Adam's step per leaf. `mesh`: True over every rank of the world,
+    or a `Mesh` whose `shard_axes` ranks shard (row-sharded with `rows`,
+    else ray-sharded)."""
     from mneslam_tpu_torch.models.scene_rep import param_items
     from mneslam_tpu_torch.utils.convert import params_to_numpy
 
-    m, st = _mapper_from_run(run, rows, mesh)
+    m, st = _mapper_from_run(run, rows, mesh, shard_axes)
     metrics = []
     for call in run["calls"]:
         frame, pose, draws = _load_call(st, call)
@@ -174,6 +180,17 @@ def case_optimize(rank, world, p):
     return [run_optimize(run, rows=run.get("rows", True)) for run in p]
 
 
+def case_composed_optimize(rank, world, p):
+    """The mapper of agent rank // R on the (agent, ray) mesh of
+    len(p) agents, row-sharded over its slice (shard_axes ("ray",)):
+    `run_optimize` of that agent's run -> (agent, the run's result)."""
+    from mneslam_tpu_torch.parallel import mesh as pm
+
+    mesh = pm.make_mesh(len(p))
+    agent = rank // int(mesh.shape["ray"])
+    return agent, run_optimize(p[agent], mesh=mesh, shard_axes=("ray",))
+
+
 def case_descriptors(rank, world, p):
     """MeshComms over an agent axis of `world` slices: each rank writes its
     agent's descriptors into its block, then reads every agent's."""
@@ -187,7 +204,9 @@ def case_descriptors(rank, world, p):
 
 def case_mesh(rank, world, p):
     """`make_mesh` on this world: the clamped shapes, and each axis
-    group's size, index and source rank with a sum and a gather over it."""
+    group's size, index and source rank with a sum, a gather, a broadcast
+    from index 0 and from the last index, and a metadata all-gather over
+    it; whether this rank may take the leaders' group."""
     from mneslam_tpu_torch.parallel import mesh as pm
 
     shapes = {n: pm.make_mesh(n).shape for n in p["n_agents"]}
@@ -200,7 +219,14 @@ def case_mesh(rank, world, p):
             "size": g.size, "index": g.index, "src": g.src,
             "sum": float(pm.all_reduce(x, g)),
             "gather": pm.all_gather_rows(x, g).tolist(),
-            "bcast": float(pm.broadcast(x.clone(), g))}
+            "bcast": float(pm.broadcast(x.clone(), g)),
+            "bcast_last": float(pm.broadcast(x.clone(), g,
+                                             root=g.size - 1)),
+            "values": pm.all_gather_values([rank, 7 * rank], g).tolist()}
+    try:
+        out["leaders_size"] = mesh.leaders().size
+    except ValueError:
+        out["leaders_size"] = None
     return out
 
 
@@ -249,9 +275,130 @@ def case_cli(rank, world, p):
             {k: v for k, v in res.items() if k != "ate"}}
 
 
+class Slice:
+    """Frames [lo, hi) of a dataset, frame ids from 0
+    (tests/test_torch_multiagent.py's)."""
+
+    def __init__(self, ds, lo, hi):
+        self.ds, self.lo, self.n = ds, lo, hi - lo
+        self.num_rays_to_save = ds.num_rays_to_save
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        item = self.ds[self.lo + i]
+        item["frame_id"] = i
+        return item
+
+
+def record_matches(collab) -> list:
+    """Wrap the collaboration's loop detector: -> the list it appends
+    (agent, kf id, match agent, match kf id) to for every match."""
+    found = []
+    det = collab.loop_detector
+
+    def match(des, kf, agent, orig=det.match):
+        info = orig(des, kf, agent)
+        if info is not None:
+            found.append((agent, kf, int(info["match_agent_id"]),
+                          int(info["match_kf_id"])))
+        return info
+    det.match = match
+    return found
+
+
+def fleet_agents(p, mesh=None, rank=0):
+    """The agents of a fleet run `p` (overrides, num_frames, segments):
+    all of them in one process (no mesh), or this rank's agent of `mesh`
+    (its slice's leader or a follower)."""
+    import copy
+
+    from mneslam_tpu_torch.config import make_config
+    from mneslam_tpu_torch.data.synthetic import SyntheticBoxDataset
+    from mneslam_tpu_torch.slam import MNESLAM
+    from mneslam_tpu_torch.tools.validate_dataset import OracleMNESLAM
+
+    cfg = make_config(p["overrides"])
+    ds = SyntheticBoxDataset(cfg, num_frames=p["num_frames"])
+    segs = p["segments"]
+    mine = range(len(segs)) if mesh is None else \
+        [rank // int(mesh.shape["ray"])]
+    out = []
+    for r in mine:
+        lead = mesh is None or mesh.group(("ray",)).index == 0
+        cls = OracleMNESLAM if cfg["mode"] == "slam" and lead else MNESLAM
+        out.append(cls(copy.deepcopy(cfg), Slice(ds, *segs[r]), rank=r,
+                       world_size=len(segs), device="cpu", mesh=mesh))
+    return out
+
+
+def fleet_result(fleet, agents, loops, results=None) -> dict:
+    """What a fleet's agents did: per agent its mapped keyframes, losses,
+    tracker and map counters, collaboration counters, closure, map, APE
+    (`results`: the terminates' results by agent, in SLAM mode) and the
+    descriptor DB's (agent, kf) keys."""
+    from mneslam_tpu_torch.models.scene_rep import param_leaves
+
+    out = {"loops": loops, "db": sorted(
+        (int(e["agent_id"]), int(e["kf_id"]))
+        for e in fleet.comms.descriptors()), "agents": {}}
+    for a, c in zip(agents, fleet.collabs):
+        out["agents"][a.rank] = {
+            "mapped": list(a.mapped_timestamps),
+            "losses": [float(m["loss"]) for m in a.metrics_log],
+            "counter": None if a.tracker is None else a.tracker.counter,
+            "map_counter": a.map_counter,
+            "accepted": c.closures_accepted, "rejected": c.closures_rejected,
+            "alignments": c.alignments, "distillations": c.distillations,
+            "aligned": c.aligned_poses_c2w,
+            "closure": (c.closure_relative, c.closure_loop_ts),
+            "kf_poses": _np(a.map_state.kf_poses),
+            "raw": a.kf_poses_raw(len(a.mapped_timestamps)),
+            "params": [_np(t) for t in param_leaves(a.map_state.params)],
+            "ate": None if results is None else
+            results[a.rank]["ate"]["rmse"]}
+    return out
+
+
+def case_fleet(rank, world, p):
+    """The composed fleet on this world: rank r builds agent r // R on its
+    segment; the slice's leader runs `ComposedFleet` (mapping-only, or
+    SLAM with the oracle update, then terminate), the others follow ->
+    the rank's role and, on a leader, `fleet_result`."""
+    from mneslam_tpu_torch.models.scene_rep import param_leaves
+    from mneslam_tpu_torch.parallel import fleet as pf
+    from mneslam_tpu_torch.parallel import mesh as pm
+
+    n = len(p["segments"])
+    mesh = pm.make_mesh(n)
+    rows = bool(p["overrides"]["mapping"].get("shard_plane_rows", False))
+    pf.composed_layout(mesh, n, rows)
+    slam, = fleet_agents(p, mesh, rank)
+    out = {"mesh": dict(mesh.shape), "agent": slam.rank,
+           "follower": slam.follower, "shard_rows": slam.mapper.shard_rows}
+    if slam.follower:
+        slam.follow()
+        out["params"] = [_np(t) for t in param_leaves(slam.map_state.params)]
+        return out
+    note = io.StringIO()
+    with contextlib.redirect_stdout(note):
+        fleet = pf.MeshAgentFleet([slam], mesh=mesh, n_agents=n)
+    out.update(composed=type(fleet).__name__, note=note.getvalue())
+    loops = record_matches(fleet.collab)
+    if slam.mode == "mapping":
+        fleet.run_mapping_only()
+        results = None
+    else:
+        results = {slam.rank: fleet.run_slam()[0]}
+    out.update(fleet_result(fleet, [slam], loops, results))
+    return out
+
+
 CASES = {"seam": case_seam, "optimize": case_optimize,
          "gradients": case_gradients, "mesh": case_mesh,
-         "descriptors": case_descriptors, "slam": case_slam, "cli": case_cli}
+         "descriptors": case_descriptors, "slam": case_slam, "cli": case_cli,
+         "fleet": case_fleet, "composed_optimize": case_composed_optimize}
 
 
 def main(argv):

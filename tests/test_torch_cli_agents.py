@@ -80,16 +80,21 @@ def test_cli_spawn_runs_one_process_per_agent(tmp_path):
 
 def test_cli_device_mesh_raises_and_resume_paths(tmp_path, monkeypatch):
     path = _tiny_yaml(tmp_path, "x")
-    # the mesh fleet over a world of several ranks (the composed agents x
-    # rows fleet) is not ported; on one process --device_mesh runs
-    # (tests/test_torch_fleet.py)
+    # several agents over a world of ranks run as the mesh fleet
+    # (--device_mesh: tests/test_torch_fleet_composed_cli.py); without it,
+    # or with one process per agent, a world raises, naming what runs
     with monkeypatch.context() as m:
         m.setattr(torch.distributed, "is_initialized", lambda: True)
         m.setattr(torch.distributed, "get_rank", lambda: 0)
         m.setattr(torch.distributed, "get_world_size", lambda: 4)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        with pytest.raises(NotImplementedError, match="--device_mesh"):
             cli.main(["--config", str(path), "--num_agents", "2",
-                      "--device_mesh", "--device", "cpu"])
+                      "--device", "cpu"])
+        for flag in ("--spawn", "--file_comms"):
+            with pytest.raises(NotImplementedError,
+                               match="one process per agent"):
+                cli.main(["--config", str(path), "--num_agents", "2",
+                          "--device_mesh", flag, "--device", "cpu"])
     # N agents: agent r resumes from PATH.agent<r>
     seen = []
     monkeypatch.setattr(MNESLAM, "load_full_state",

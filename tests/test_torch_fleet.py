@@ -159,19 +159,24 @@ def test_fleet_overrides_a_mapper_mesh_and_refuses_a_world(tmp_path,
     """tests/test_fleet.py:295: with mapping.shard_plane_rows on one slice
     no row group is left, so the agents map with a plain mapper (one
     process builds no mesh mapper) and the fleet runs. On a world of
-    several ranks (the composed agents x rows fleet) it raises, naming
-    the ROADMAP item."""
+    several ranks the fleet is the composed one, and a mesh whose agent
+    axis was clamped (2 agents on 3 ranks: one slice of 3) raises JAX's
+    one-agent-per-slice error (tests/test_torch_fleet_composed.py holds
+    the guards and the composed runs)."""
     ov = fleet_overrides(tmp_path, "rows")
     ov["mapping"].update(shard_plane_rows=True, first_iters=4, iters=2)
     agents = make_agents(ov)
     fleet = pfleet.MeshAgentFleet(agents)
+    assert type(fleet) is pfleet.MeshAgentFleet
     assert not fleet.mapper.shard_rows and fleet.mapper.mesh is None
     logs = fleet.run_mapping_only()
     assert all(np.isfinite(m["loss"]) for log in logs for m in log)
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4b"):
-        pfleet.MeshAgentFleet(agents)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 3)
+    with pytest.raises(ValueError, match="exactly one agent per 'agent' "
+                                         "slice: 2 agents on a mesh with "
+                                         "agent axis 1"):
+        pfleet.MeshAgentFleet(agents, mesh=pmesh.Mesh(1, 3, 0, {}, "host"))
 
 
 def test_cli_device_mesh_runs_the_fleet(tmp_path):

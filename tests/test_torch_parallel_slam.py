@@ -7,6 +7,8 @@ mapping-only mode and in SLAM mode with the oracle tracker update, and
 the sharded mapper is held against JAX in test_torch_parallel_optimize.py.
 """
 
+import json
+
 import numpy as np
 import torch
 import yaml
@@ -94,8 +96,9 @@ def test_shard_plane_rows_slam_mode_oracle_leader_and_follower(tmp_path):
 def test_cli_in_a_world_of_two_ranks(tmp_path):
     """`cli.main` in a world of 2 ranks: the row-sharded run (rank 0
     returns the agent's result and writes the outputs, rank 1 returns
-    None); `--device_mesh` there raises, naming the ROADMAP item of the
-    composed fleet."""
+    None); with `--device_mesh` the same agent runs as the composed fleet
+    of one slice (rank 0 leads it through `ComposedFleet`, rank 1
+    follows), to the same per-keyframe losses."""
     ov = _mapping_overrides(tmp_path / "out")
     ov.update(dataset="synthetic")
     ov["data"].update(num_frames=4)
@@ -109,6 +112,18 @@ def test_cli_in_a_world_of_two_ranks(tmp_path):
     assert leader["result"]["keyframes"] == 2
     assert (tmp_path / "out" / "rows" / "agent_0"
             / "final_checkpoint.npz").exists()
-    outs = run_ranks("cli", 2, tmp_path / "mesh",
-                     {"argv": argv + ["--device_mesh"]})
-    assert all("Queue 1 item 4b" in o["raised"] for o in outs)
+    leader_m, follower_m = run_ranks(
+        "cli", 2, tmp_path / "mesh",
+        {"argv": argv + ["--device_mesh", "--output",
+                         str(tmp_path / "mesh_out")]})
+    assert follower_m == {"result": None}
+    assert leader_m["result"]["keyframes"] == 2
+
+    def losses(root):
+        with open(root / "rows" / "agent_0" / "metrics.jsonl") as f:
+            return [r["loss"] for r in map(json.loads, f)
+                    if r.get("kind") == "metric"]
+    ref = losses(tmp_path / "out")
+    assert len(ref) == 2
+    np.testing.assert_allclose(losses(tmp_path / "mesh_out"), ref,
+                               rtol=1e-6)
