@@ -150,7 +150,9 @@ Phases, each of which must pass (any failure exits non-zero):
      kernel 1 six launches per iteration; 14b. 4 ranks on cuda:0 over
      gloo (through host memory): the gradient of one batch
      (`Mapper.gradients`) against the plain mapper's, per leaf within
-     1e-4 of its largest element in fp32 (fold "after" and "before") and
+     1e-4 of its largest element in fp32 (fold "after" and "before"; and
+     with `grid.oneGrid: false`, the colour planes through the seam, 12
+     kernel-1 launches per iteration) and
      2e-2 in bf16, then the optimize in fp32 on calls of 1 and 2
      iterations (cut to fit the budget): the sync seam and fold "before"
      against the plain mapper, shard_gather_every 8 against one rank's
@@ -170,7 +172,8 @@ Phases, each of which must pass (any failure exits non-zero):
      1e-4 of a one-process `cli.main` of the same config (the plain
      mapper), kernel 1 six launches per iteration on both ranks; 14d.
      `MeshAgentFleet.run_mapping_only`, two agents at room0 widths on the
-     first 11 frames of 12c's segments (first_iters 50, loop_iters 10,
+     first 11 frames of 12c's segments (first_iters 20, iters 20,
+     loop_iters 10,
      fusion off), against `MultiAgentRunner.run_mapping_only`, which runs
      twice: the same keyframes, every keyframe's loss within rtol 1e-4 of
      the runner's, the parameters' distance printed beside the runner's
@@ -206,7 +209,34 @@ Phases, each of which must pass (any failure exits non-zero):
      seconds per world and ms per iteration by rank. 14d's runs and 14e's
      references in this process go first, on a quiet card; then the
      child processes of 14b, 14c, 14d's CLI and 14e run at the same time.
-     The phase's time is printed beside its budget of 210 s.
+     The phase's time is printed beside its budget of 210 s;
+ 15. the options the shipped configs leave off (colour planes
+     `grid.oneGrid: false`, `training.n_importance`, the smoothness term
+     `training.smooth_weight`, `MNESLAM_PLANE_SAMPLER`, the encodings and
+     the hash grid, `MNESLAM_GRU_IMPL=fused`, the tracker extras): 15a.
+     phase 3's tiny config with colour planes, 8 importance samples and
+     the smoothness term, 3 mapper steps GPU vs CPU through the u seam for
+     each sampler (packed, merged, rows) in fp32 and packed in bf16
+     (losses rtol 1e-4, parameters 5e-4), kernel 1 exactly 30 / 15 / 0
+     launches per iteration (24 of the 30 on bf16 values under bf16);
+     15b. `cli.main --mode mapping` on a yaml that inherits
+     configs/Replica/room0.yaml with the options on (width uncut, 6
+     box-room frames, first_iters and iters cut to 150 and 25): last PSNR
+     above 16 dB, kernel 1 30 launches per iteration, both meshes, their
+     vertex colours the map's and moved by its colour planes, ms per
+     iteration beside phase 7's; kernel 1 on one iteration's six
+     colour-plane calls against its plain version, timed beside its bound
+     and `index_add_`; 15c. the encodings and the hash grid at its
+     defaults GPU vs CPU (indices equal, features, the table's gradient),
+     the fused GRU against the reference in bf16 at the frontend's shapes
+     (2^-4), phase 5's tiny oracle SLAM run under MNESLAM_GRU_IMPL=fused
+     with the DROID update's GRU running (key poses within 5 cm), then
+     `depth_filter`, `upsample_disps` and `keyframe_selection_overlap` on
+     its state GPU vs CPU, and `maybe_profile` writing a trace. The
+     phase's time is printed beside its budget of 90 s.
+Every phase prints its seconds. Phase 13b maps 18 TUM frames (24 before
+phase 15) and 14d's fleet first_iters 20 and iters 20 (50 and 50 before):
+the depth that pays for phase 15.
 Prints the kernels' JSON line, then as the last line
 {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc; imports
 nothing of JAX.
@@ -769,9 +799,11 @@ def main_path():
     return slam, cfg, metrics, seconds, launches["scatter_add_rows"]
 
 
-def path_scatter_inputs(slam, generator):
+def path_scatter_inputs(slam, generator, plane_shapes=None, prefix=""):
     """The six (idx, vals, n_rows) scatter inputs of one mapping iteration
-    at the trained state: indices from a real ray batch, values random."""
+    at the trained state: indices from a real ray batch (its first render
+    pass), values random; of the geometry planes, or of the planes of
+    `plane_shapes` (the colour planes), their names after `prefix`."""
     import torch
 
     from mneslam_tpu_torch.ops import interp
@@ -787,14 +819,14 @@ def path_scatter_inputs(slam, generator):
     pts = (rays_o[:, None] + rays_d[:, None] * z[..., None]).reshape(-1, 3)
     p_nor = scene._normalize(pts)
     out = []
-    for lvl, shapes in enumerate(scene.plane_shapes):
+    for lvl, shapes in enumerate(plane_shapes or scene.plane_shapes):
         for name, dims in (("xy", [0, 1]), ("xz", [0, 2]), ("yz", [1, 2])):
             C, Hp, Wp = shapes[name]
             idx, _, _ = interp._cell(p_nor[:, dims], Hp, Wp)
             vals = torch.randn((idx.shape[0], 4 * C), generator=generator,
                                device="cuda")
-            out.append((f"{'coarse' if lvl == 0 else 'fine'}_{name}", idx,
-                        vals, Hp * Wp))
+            out.append((f"{prefix}{'coarse' if lvl == 0 else 'fine'}_"
+                        f"{name}", idx, vals, Hp * Wp))
     return out
 
 
@@ -1978,8 +2010,9 @@ def collaboration(slam, card):
 TUM_CONFIG = os.path.join("configs", "TUM", "fr1_desk.yaml")
 FAST_CONFIG = os.path.join("configs", "Replica", "room0_fast.yaml")
 # 13b: TUM frames of the box room, past the tracker's warmup of 12, so the
-# frontend updates; under its window of 25 (no backend)
-TUM_FRAMES = 24
+# frontend updates; under its window of 25 (no backend); 24 before phase
+# 15, cut to pay for it
+TUM_FRAMES = 18
 # 13c: frames of the room0_fast mapping-only run, as phase 7
 FAST_FRAMES = 11
 # 13c's GPU-vs-CPU bf16 parity (3 mapper steps of the tiny config): the
@@ -2549,7 +2582,8 @@ SHARD_GRAD_TOL = 1e-4
 SHARD_GRAD_TOL_BF16 = 2e-2
 # 14d: the first FLEET_FRAMES frames of each of 12c's segments
 FLEET_FRAMES = 11
-FLEET_FIRST_ITERS = 50      # room0's 500 cut
+FLEET_FIRST_ITERS = 20      # room0's 500 cut (50 before phase 15)
+FLEET_ITERS = 20            # room0's 50 cut (phase 15 pays with it)
 FLEET_LOOP_ITERS = 10       # room0's loop_iters 100 cut (alignments)
 
 
@@ -2821,16 +2855,17 @@ def spawn_ranks(tag: str, spec: dict, world: int, backend: str) -> list:
 
 def check_shard(tag: str, r: dict, ref_losses, n_ranks: int,
                 param_share=None, loss_rtol=SHARD_LOSS_RTOL,
-                grad_tol=None) -> float:
-    """A sharded run's checks: kernel 1 six times per iteration, the
+                grad_tol=None, per_iter=SCATTERS_PER_ITER) -> float:
+    """A sharded run's checks: kernel 1 `per_iter` times (six, twelve with
+    colour planes) per iteration, the
     replicas equal, the losses within `loss_rtol` (None: printed only),
     the parameters within SHARD_PARAM_TOL on all but `param_share` of
     the elements (None: printed only; see SHARD_LOSS_RTOL), and a
     gradient within `grad_tol` (None: printed only) -> the max relative
     loss difference."""
-    if r["launches"] != SCATTERS_PER_ITER * r["iters"]:
+    if r["launches"] != per_iter * r["iters"]:
         raise SystemExit(f"{tag}: kernel-1 launches {r['launches']} != "
-                         f"{SCATTERS_PER_ITER} x {r['iters']} iterations")
+                         f"{per_iter} x {r['iters']} iterations")
     if r["replica_diff"] != 0.0:
         raise SystemExit(f"{tag}: the ranks' maps differ by "
                          f"{r['replica_diff']}")
@@ -2941,7 +2976,7 @@ def fleet_check(card) -> tuple:
         cfg["mode"] = "mapping"
         cfg["data"].update(output=RUN_OUT, exp_name=exp)
         cfg["mapping"].update(first_iters=FLEET_FIRST_ITERS,
-                              loop_iters=FLEET_LOOP_ITERS)
+                              iters=FLEET_ITERS, loop_iters=FLEET_LOOP_ITERS)
         # the fleet reads a peer's live map where the runner reads its
         # last published one, so a distillation differs by design
         cfg["distillation"]["use_bound_overlap"] = False
@@ -3743,6 +3778,10 @@ def shard_phase(card) -> dict:
         abs(a - b) / abs(b) for a, b in zip(again32["losses"],
                                             plain32["losses"]))
     g32 = plain_gradients(cfg32, spec, ref("grads_fp32"))
+    # 14b's colour-plane batch: grid.oneGrid false (replica.yaml's
+    # c_planes_res 0.08 / 0.02) through the seam, fp32
+    cfg32c = {**cfg32, "grid": {"oneGrid": False}}
+    g32c = plain_gradients(cfg32c, spec, ref("grads_fp32_colour"))
     g16 = plain_gradients(cfg, spec, ref("grads_bf16"))
     g16_self = grad_rel_err(
         torch.load(plain_gradients(cfg, spec, ref("grads_bf16_again"))),
@@ -3809,28 +3848,34 @@ def shard_phase(card) -> dict:
     # batch's gradient (fp32 both fold orders, bf16), then the optimize
     # (fp32: the sync seam, gather_every 8, fold before)
     G = SHARD_GRAD_TOL
+    P = SCATTERS_PER_ITER
+    # (name, run, reference losses, gradient bound, kernel-1 launches per
+    # iteration)
     b_runs = (("gradient, fold after (fp32)",
-               dict(run(cfg32, (), 1), grads=g32), [], G),
+               dict(run(cfg32, (), 1), grads=g32), [], G, P),
               ("gradient, fold before (fp32)",
-               dict(run(cfg32, (), 1, fold="before"), grads=g32), [], G),
+               dict(run(cfg32, (), 1, fold="before"), grads=g32), [], G, P),
               ("gradient, fold after (bf16)",
-               dict(run(cfg, (), 1), grads=g16), [], SHARD_GRAD_TOL_BF16),
+               dict(run(cfg, (), 1), grads=g16), [], SHARD_GRAD_TOL_BF16, P),
+              ("gradient, colour planes (fp32)",
+               dict(run(cfg32c, (), 1), grads=g32c), [], G, 2 * P),
               ("optimize, gather_every 1, fold after (fp32)",
                dict(run(cfg32, SHARD_B_SCHEDULE, 1, ref=plain32["save"]),
-                    g1=g32), plain32["losses"], None),
+                    g1=g32), plain32["losses"], None, P),
               ("optimize, gather_every 8 (fp32)",
                dict(run(cfg32, SHARD_B_SCHEDULE, 8, ref=ge8_path), g1=g32),
-               a_ge8["losses"], None),
+               a_ge8["losses"], None, P),
               ("optimize, fold before (fp32)",
                dict(run(cfg32, SHARD_B_SCHEDULE, 1, fold="before",
                         ref=plain32["save"]), g1=g32),
-               plain32["losses"], None))
+               plain32["losses"], None, P))
     # 14d's runs in this process first, on a quiet card (they are
     # timed): the fleet, mapping-only against the runner, and SLAM
     log(f"14d mesh fleet: two agents at room0 widths on frames "
         f"{MA_SEGMENTS[0][0]}-{MA_SEGMENTS[0][0] + FLEET_FRAMES - 1} and "
         f"{MA_SEGMENTS[1][0]}-{MA_SEGMENTS[1][0] + FLEET_FRAMES - 1} of "
-        f"12c's trajectory, first_iters cut to {FLEET_FIRST_ITERS}, "
+        f"12c's trajectory, first_iters cut to {FLEET_FIRST_ITERS}, iters "
+        f"to {FLEET_ITERS}, "
         f"loop_iters to {FLEET_LOOP_ITERS}, fusion off")
     frames, fl = fleet_check(card)
     log(f"14d fleet vs runner: {json.dumps(fl)} on {card}")
@@ -3862,7 +3907,7 @@ def shard_phase(card) -> dict:
     # once (their times are no speeds: gloo through host memory, process
     # starts); a failed job raises here once every job has ended
     torch.cuda.empty_cache()
-    b_spec = dict(spec, runs=[r for _, r, _, _ in b_runs])
+    b_spec = dict(spec, runs=[r for _, r, _, _, _ in b_runs])
     with concurrent.futures.ThreadPoolExecutor(4) as pool:
         jobs = [pool.submit(spawn_ranks, "shard14b", b_spec, SHARD_RANKS,
                             "gloo"),
@@ -3873,10 +3918,10 @@ def shard_phase(card) -> dict:
     steps["14b, 14c, 14d cli, 14e"] = time.perf_counter() - t14 - sum(
         steps.values())
     b_out = {}
-    for j, (name, _, ref_losses, gtol) in enumerate(b_runs):
+    for j, (name, _, ref_losses, gtol, per_iter) in enumerate(b_runs):
         rels = [check_shard(f"14b {name} rank {k}", ranks[j], ref_losses,
                             SHARD_RANKS, param_share=SHARD_PARAM_SHARE,
-                            grad_tol=gtol)
+                            grad_tol=gtol, per_iter=per_iter)
                 for k, ranks in enumerate(b)]
         r0 = b[0][j]
         if r0["transport"] != "host":
@@ -3914,7 +3959,7 @@ def shard_phase(card) -> dict:
         b_out[name] = out
         log(f"14b {SHARD_RANKS} ranks on cuda:0 over gloo, {name}: {what}; "
             f"kernel-1 launches by rank {out['launches_by_rank']} = "
-            f"{SCATTERS_PER_ITER} x {r0['iters']} each")
+            f"{per_iter} x {r0['iters']} each")
 
     # 14c: cli.main under torchrun, a world of CLI_RANKS ranks
     log(f"14c torchrun --nproc_per_node={CLI_RANKS} -m mneslam_tpu_torch."
@@ -3974,6 +4019,614 @@ def shard_phase(card) -> dict:
                                   ce["slam"]["launches_by_rank"]]}}
 
 
+# ---------------------------------------------------------------------------
+# 15. the rest of the scene representation and tracker
+# ---------------------------------------------------------------------------
+
+# phase 15's printed budget (not a failure when over)
+OPTIONS_BUDGET_S = 90.0
+# kernel-1 calls per mapping iteration with colour planes, importance
+# resampling and the smoothness term, by plane sampler: per query pass 6
+# (packed) or 3 (merged, one [8C] table per orientation) for the geometry
+# and 6 / 3 for the colour planes, two passes, and 6 / 3 for the
+# smoothness term; the rows sampler's backward is plain autograd
+OPTIONS_SCATTERS = {"packed": 30, "merged": 15, "rows": 0}
+# of the packed sampler's 30 under render_dtype bfloat16, the render's
+# are on bf16 values; the smoothness term's 6 stay fp32
+OPTIONS_SCATTERS_BF16 = 24
+OPTIONS_STEPS = 3
+# 15b: room0.yaml's keys with the options on, through cli.main on phase
+# 7's box room; frames 0 and 5 map (keyframe_every 5), room0's first_iters
+# 500 and iters 50 cut to 150 and 25
+OPTIONS_FRAMES = 6
+OPTIONS_ITERS = (150, 25)
+OPTIONS_KEYS = {"grid": {"oneGrid": False},
+                "training": {"n_importance": 8, "smooth_weight": 1e-6}}
+# 15c: the fused GRU in bf16 against the reference GRU in bf16 (and each
+# against the fp32 GRU): the gates' pre-activations (sums of a few units)
+# round to bf16 at other points (3 convolutions and 2 adds against one
+# convolution over the concatenated input), a few bf16 ulps of the
+# outputs in (-1, 1)
+GRU_BF16_ATOL = 2.0 ** -4
+GRU_EDGES = 16              # 15c: edges of the frontend's net [E, 128, 40, 80]
+# 15c: the hash grid at its defaults (16 levels, 2^16 rows of 2 features)
+HASH_POINTS = 8192
+
+
+def options_config(out_dir, render_dtype="float32"):
+    """Phase 3's tiny config with colour planes (at the planes'
+    resolutions), 8 importance samples and the smoothness term."""
+    cfg = tiny_config(out_dir)
+    cfg["grid"]["oneGrid"] = False
+    cfg["c_planes_res"] = {"coarse": 0.44, "fine": 0.22}
+    cfg["training"].update(n_importance=8, smooth_weight=0.01,
+                           render_dtype=render_dtype)
+    return cfg
+
+
+def options_parity(sampler: str, render_dtype: str) -> dict:
+    """15a: OPTIONS_STEPS mapper steps of `options_config` with
+    MNESLAM_PLANE_SAMPLER=`sampler`, GPU vs CPU from the same weights and
+    the same uniforms (the u seam: perturbation, importance samples, the
+    smoothness grid's offset and jitter), the counts set to 0 just before
+    the GPU steps and read just after -> losses, max relative loss and
+    parameter differences, launches."""
+    import numpy as np
+    import torch
+
+    from mneslam_tpu_torch.mapping.mapper import Mapper, make_optimizer
+    from mneslam_tpu_torch.models import scene_rep as psr
+    from mneslam_tpu_torch.models.scene_rep import SceneRep, param_leaves
+    from mneslam_tpu_torch.utils.convert import (params_from_jax,
+                                                 params_to_numpy)
+
+    cfg = options_config(os.path.join(RUN_OUT, "options"), render_dtype)
+    old = psr._PLANE_SAMPLER
+    psr._PLANE_SAMPLER = sampler
+    try:
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            scene = SceneRep(cfg, dev)
+            mapper = Mapper(cfg, scene, num_kf=2, rays_per_kf=16)
+            runs[dev] = (mapper, mapper.init_state(
+                torch.Generator(device=dev).manual_seed(0)))
+        params_np = params_to_numpy(runs["cpu"][1].params)
+        for dev, (mapper, state) in runs.items():
+            state.params = params_from_jax(params_np, device=dev)
+            state.optimizer = make_optimizer(cfg, state.params)
+        rng = np.random.default_rng(1)
+        n, S = 448, 17
+        batches = []
+        for _ in range(OPTIONS_STEPS):
+            o = rng.normal(0, 0.1, (n, 3)).astype(np.float32)
+            d = rng.normal(size=(n, 3)).astype(np.float32)
+            d /= np.linalg.norm(d, axis=-1, keepdims=True)
+            u = {"perturb": rng.uniform(size=(n, S)),
+                 "importance": rng.uniform(size=(n, 8)),
+                 "smooth_offset": rng.uniform(size=3),
+                 "smooth_jitter": rng.uniform(size=3)}
+            batches.append((o, d, rng.uniform(size=(n, 3)),
+                            0.5 + rng.uniform(size=(n, 1)),
+                            {k: v.astype(np.float32) for k, v in u.items()}))
+        losses, launches = {}, None
+        for dev, (mapper, state) in runs.items():
+            if dev == "cuda":
+                reset_launches()
+            losses[dev] = []
+            for o, d, rgb, td, u in batches:
+                t = [torch.as_tensor(np.asarray(a, np.float32), device=dev)
+                     for a in (o, d, rgb, td)]
+                m = mapper.step(state, *t, u={
+                    k: torch.as_tensor(v, device=dev) for k, v in u.items()})
+                losses[dev].append(float(m["loss"]))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = read_launches()
+    finally:
+        psr._PLANE_SAMPLER = old
+    rel = max(abs(a - b) / max(abs(b), 1e-12)
+              for a, b in zip(losses["cuda"], losses["cpu"]))
+    pdiff = max(float((a.detach().cpu() - b.detach()).abs().max())
+                for a, b in zip(param_leaves(runs["cuda"][1].params),
+                                param_leaves(runs["cpu"][1].params)))
+    return {"sampler": sampler, "render_dtype": render_dtype,
+            "losses": losses, "max_rel_loss_diff": rel,
+            "max_param_diff": pdiff,
+            "scatter_add_rows": launches["scatter_add_rows"],
+            "scatter_add_rows_bf16": launches["scatter_add_rows_bf16"],
+            "per_iteration": launches["scatter_add_rows"] / OPTIONS_STEPS}
+
+
+def check_options_parity(r: dict):
+    """15a's checks: losses rtol 1e-4, parameters 5e-4, kernel 1's calls
+    per iteration exactly (24 of the packed sampler's 30 on bf16 values
+    under bfloat16)."""
+    want = OPTIONS_SCATTERS[r["sampler"]] * OPTIONS_STEPS
+    want_bf16 = (OPTIONS_SCATTERS_BF16 * OPTIONS_STEPS
+                 if r["render_dtype"] == "bfloat16" else 0)
+    bad = [what for what, ok in (
+        ("losses", r["max_rel_loss_diff"] < BF16_LOSS_RTOL),
+        ("parameters", r["max_param_diff"] < BF16_PARAM_ATOL),
+        (f"kernel-1 launches {r['scatter_add_rows']} != {want}",
+         r["scatter_add_rows"] == want),
+        (f"bf16 launches {r['scatter_add_rows_bf16']} != {want_bf16}",
+         r["scatter_add_rows_bf16"] == want_bf16)) if not ok]
+    if bad:
+        raise SystemExit(f"15a {r['sampler']} {r['render_dtype']}: {bad}: "
+                         f"{json.dumps(r)}")
+
+
+def scatter_call_times(calls) -> dict:
+    """Each (name, idx, vals, n_rows) kernel-1 call against its plain
+    version (`check_scatter`), then timed (CUDA events) beside the plain
+    version, `index_add_` and its bound (bytes: each input read once, the
+    table written once; operations: one fp32 add per value) -> the max
+    error, the sums over the calls and one line per call."""
+    import torch
+
+    from mneslam_tpu_torch.kernels.scatter_add_rows import (
+        scatter_add_rows, scatter_add_rows_plain)
+    from mneslam_tpu_torch.tools.measure import (FP32_FLOPS,
+                                                 HBM_BYTES_PER_S, cuda_ms)
+
+    out = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
+           "bound_ms": 0.0, "max_abs_err": 0.0, "err_ratio": 0.0,
+           "lines": []}
+    for name, idx, vals, n_rows in calls:
+        err, ratio = check_scatter(idx, vals, n_rows)
+        nu, width = vals.shape
+        ms = cuda_ms(lambda: scatter_add_rows(idx, vals, n_rows))
+        plain = cuda_ms(lambda: scatter_add_rows_plain(idx, vals, n_rows))
+        lib = cuda_ms(lambda: torch.zeros(
+            (n_rows, width), device="cuda").index_add_(0, idx, vals))
+        nbytes = nu * width * 4 + nu * idx.element_size() + n_rows * width * 4
+        bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, nu * width / FP32_FLOPS)
+        out["lines"].append(
+            f"scatter_add_rows {name}: n_rows {n_rows} nu {nu} width "
+            f"{width}: kernel {ms:.4f} ms, plain {plain:.4f} ms, index_add_ "
+            f"{lib:.4f} ms, bound {1e3 * bound:.1f} us ({nbytes} bytes at "
+            f"3.35 TB/s), max abs err {err:.3e}, err / tolerance "
+            f"{ratio:.3f}")
+        out["ms"] += ms
+        out["plain_ms"] += plain
+        out["library_ms"] += lib
+        out["bytes"] += nbytes
+        out["bound_ms"] += bound
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["err_ratio"] = max(out["err_ratio"], ratio)
+    return out
+
+
+class _Recorded:
+    """A context that makes `slam.MNESLAM` record the agents it builds
+    (`built`) and `datasets.get_dataset` give phase 7's box room, for a
+    `cli.main` in this process."""
+
+    def __init__(self, num_frames):
+        self.num_frames = num_frames
+        self.built = []
+
+    def __enter__(self):
+        from mneslam_tpu_torch import slam as slam_mod
+        from mneslam_tpu_torch.data import datasets
+        from mneslam_tpu_torch.data.synthetic import SyntheticBoxDataset
+
+        built, n = self.built, self.num_frames
+        self._saved = (slam_mod.MNESLAM, datasets.get_dataset)
+
+        class Recorded(slam_mod.MNESLAM):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                built.append(self)
+
+        slam_mod.MNESLAM = Recorded
+        datasets.get_dataset = lambda cfg: SyntheticBoxDataset(
+            cfg, num_frames=n, half=BOX_HALF)
+        return self
+
+    def __exit__(self, *exc):
+        from mneslam_tpu_torch import slam as slam_mod
+        from mneslam_tpu_torch.data import datasets
+
+        slam_mod.MNESLAM, datasets.get_dataset = self._saved
+        return False
+
+
+def options_room0(card, fp32_iter_ms) -> dict:
+    """15b: `cli.main --mode mapping` on a yaml written here that inherits
+    configs/Replica/room0.yaml (width uncut) with OPTIONS_KEYS, on phase
+    7's box room (OPTIONS_FRAMES frames, OPTIONS_ITERS iterations, the
+    terminate's meshes over the box's bound), the counts set to 0 just
+    before and read just after; then the final mesh's vertex colours
+    against the map with and without its colour planes, the steady-state
+    ms per iteration, and kernel 1 on one iteration's colour-plane calls.
+    Raises SystemExit on a failed check."""
+    import copy
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from mneslam_tpu_torch import cli
+    from mneslam_tpu_torch.mapping import mesher
+    from mneslam_tpu_torch.ops import mc
+
+    keys = copy.deepcopy(OPTIONS_KEYS)
+    keys.update(
+        dataset="synthetic", mode="mapping",
+        data={"output": RUN_OUT, "exp_name": "room0_options",
+              "num_frames": OPTIONS_FRAMES},
+        mapping={"first_iters": OPTIONS_ITERS[0],
+                 "iters": OPTIONS_ITERS[1],
+                 "marching_cubes_bound":
+                     [[-BOX_HALF - 0.05, BOX_HALF + 0.05]] * 3})
+    path = os.path.join(OUT, "room0_options.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump({"inherit_from": os.path.join(
+            ROOT, "configs", "Replica", "room0.yaml"), **keys}, f)
+    cwd = os.getcwd()
+    os.chdir(ROOT)      # the configs' inherit_from paths are relative
+    try:
+        with _Recorded(OPTIONS_FRAMES) as rec:
+            reset_launches()
+            t0 = time.perf_counter()
+            res = cli.main(["--config", path, "--mode", "mapping",
+                            "--device", "cuda"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = read_launches()
+    finally:
+        os.chdir(cwd)
+    slam = rec.built[0]
+    cfg, scene = slam.config, slam.scene
+    metrics = slam.metrics_log
+    mp = cfg["mapping"]
+    n_kf = len(slam.mapped_timestamps)
+    iters = int(mp["first_iters"]) + (n_kf - 1) * int(mp["iters"])
+    mesh_dir = os.path.join(slam.out_dir, "mesh")
+    out = {"keys": keys, "c_plane_shapes": scene.c_plane_shapes,
+           "keyframes": n_kf, "iterations": iters, "seconds": seconds,
+           "launches": launches, "psnr_last": float(metrics[-1]["psnr"]),
+           "finite": all(math.isfinite(v) for m in metrics
+                         for v in m.values()),
+           "mesh_verts": res.get("mesh_verts"),
+           "mesh_verts_culled": res.get("mesh_verts_culled"),
+           "meshes": all(os.path.exists(os.path.join(mesh_dir, n)) for n in
+                         ("final_mesh.ply", "final_mesh_culled.ply"))}
+    # the written vertex colours are the map's (colour planes in), and
+    # the colour planes move them
+    params = slam.map_state.params
+    verts, faces, colors = mc.load_ply(os.path.join(mesh_dir,
+                                                    "final_mesh.ply"))
+    with torch.no_grad():
+        again = mesher.vertex_colors(scene, params, cfg, verts, faces)
+        no_c = dict(params, c_planes={
+            k: [torch.zeros_like(t) for t in v]
+            for k, v in params["c_planes"].items()})
+        without = mesher.vertex_colors(scene, no_c, cfg, verts, faces)
+    out["colors_vs_map"] = float(np.abs(colors - again).max())
+    out["colors_moved_by_c_planes"] = float(np.abs(again - without).mean())
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    frame, pose = slam._frame_for_mapping(int(slam.mapped_timestamps[-1]))
+    slam.mapper.optimize(slam.map_state, frame, pose, gen, iters=3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slam.mapper.optimize(slam.map_state, frame, pose, gen,
+                         iters=int(mp["iters"]))
+    torch.cuda.synchronize()
+    out["iter_ms"] = 1e3 * (time.perf_counter() - t0) / int(mp["iters"])
+    out["fp32_iter_ms"] = fp32_iter_ms
+
+    # kernel 1 on one iteration's six colour-plane calls (real indices of
+    # the first pass, random values)
+    out["kernel1_colour"] = scatter_call_times(path_scatter_inputs(
+        slam, gen, scene.c_plane_shapes, "c_planes_"))
+    n = OPTIONS_SCATTERS["packed"] * iters
+    bad = [what for what, ok in (
+        (f"kernel-1 launches {launches['scatter_add_rows']} != {n}",
+         launches["scatter_add_rows"] == n
+         and not launches["scatter_add_rows_bf16"]),
+        ("no other kernel", not any(v for k, v in launches.items()
+                                    if not k.startswith("scatter_add_rows"))),
+        ("PSNR", out["psnr_last"] > PSNR_FLOOR),
+        ("finite", out["finite"]),
+        ("meshes", out["meshes"] and (out["mesh_verts"] or 0) > 0),
+        # the PLY stores each colour truncated to 1/255
+        ("vertex colours from the map",
+         out["colors_vs_map"] <= 1.0 / 255 + 1e-4),
+        ("vertex colours move with the colour planes",
+         out["colors_moved_by_c_planes"] > 1.0 / 255)) if not ok]
+    if bad:
+        shown = {k: v for k, v in out.items() if k != "kernel1_colour"}
+        raise SystemExit(f"15b room0 with the options: {bad}: "
+                         f"{json.dumps(shown)}")
+    return out
+
+
+def encodings_check() -> dict:
+    """15c: every encoding and the hash grid at its defaults, GPU against
+    CPU on the same inputs: values rtol 1e-5 / atol 1e-5 (sin / cos of
+    arguments up to 2^11 pi), the hash grid's features atol 1e-9 (values
+    near 1e-4), its corner indices equal at every level and its table's
+    gradient rtol 1e-5 / atol 1e-6 (atomic sums on the card)."""
+    import torch
+
+    from mneslam_tpu_torch.ops import encodings, hashgrid
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.rand((4096, 3), generator=g)
+    x[:64] = 1.0 - 1e-4 * torch.rand((64, 3), generator=g)
+    dirs = torch.nn.functional.normalize(torch.randn((4096, 3), generator=g),
+                                         dim=-1)
+    out = {}
+    for name, kw, inp in (("OneBlob", {"n_bins": 16}, x),
+                          ("Frequency", {"n_frequencies": 12}, x),
+                          ("SphericalHarmonics", {"degree": 4}, dirs),
+                          ("Identity", {}, x)):
+        fn, dim = encodings.get_encoder(name, **kw)
+        a, b = fn(inp.cuda()).cpu(), fn(inp)
+        if not (a.shape[-1] == dim and torch.allclose(a, b, rtol=1e-5,
+                                                      atol=1e-5)):
+            raise SystemExit(f"15c encoding {name}: GPU and CPU differ by "
+                             f"{float((a - b).abs().max())}")
+        out[name] = float((a - b).abs().max())
+
+    params, res = hashgrid.init_hash_grid(g)
+    T = params["table"].shape[1]
+    gpu = {"table": params["table"].detach().cuda().requires_grad_(True)}
+    w = torch.randn((4096, 2 * len(res)), generator=g)
+    fa = hashgrid.hash_grid_encode(gpu, x.cuda(), res)
+    fb = hashgrid.hash_grid_encode(params, x, res)
+    (fa * w.cuda()).sum().backward()
+    (fb * w).sum().backward()
+    hashed = [r for r in res if (r + 1) ** 3 > T]
+    c = (x * res[-1]).floor().long()
+    idx_equal = all(torch.equal(
+        hashgrid.corner_index(*(c[:, i].cuda() for i in range(3)), r,
+                              T).cpu(),
+        hashgrid.corner_index(*(c[:, i] for i in range(3)), r, T))
+        for r in res)
+    out["hash_grid"] = {
+        "levels": len(res), "rows": T, "hashed_levels": len(hashed),
+        "features_err": float((fa.detach().cpu() - fb.detach()).abs().max()),
+        "grad_err": float((gpu["table"].grad.cpu()
+                           - params["table"].grad).abs().max()),
+        "indices_equal": idx_equal}
+    h = out["hash_grid"]
+    if not (idx_equal and h["features_err"] <= 1e-9 and torch.allclose(
+            gpu["table"].grad.cpu(), params["table"].grad, rtol=1e-5,
+            atol=1e-6) and hashed):
+        raise SystemExit(f"15c hash grid: GPU and CPU differ: {h}")
+    return out
+
+
+def gru_check() -> dict:
+    """15c: `gru_apply_fused` against `gru_apply` at the frontend's shapes
+    (net [GRU_EDGES, 128, 40, 80], inp [.., 320, ..]) in bf16, each also
+    against the fp32 reference GRU; within GRU_BF16_ATOL; both timed."""
+    import torch
+
+    from mneslam_tpu_torch.models import droid_net
+    from mneslam_tpu_torch.tools.measure import cuda_ms
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    p32 = droid_net.init_gru(g, device="cuda")
+    p16 = droid_net.cast_params(p32, torch.bfloat16)
+    net = torch.tanh(torch.randn((GRU_EDGES, 128, 40, 80), generator=g,
+                                 device="cuda"))
+    inp = torch.relu(torch.randn((GRU_EDGES, 320, 40, 80), generator=g,
+                                 device="cuda"))
+    with torch.no_grad():
+        ref32 = droid_net.gru_apply(p32, net, inp).float()
+        n16, i16 = net.bfloat16(), inp.bfloat16()
+        ref = droid_net.gru_apply(p16, n16, i16).float()
+        fused = droid_net.gru_apply_fused(p16, n16, i16).float()
+        out = {"fused_vs_ref": float((fused - ref).abs().max()),
+               "fused_vs_fp32": float((fused - ref32).abs().max()),
+               "ref_vs_fp32": float((ref - ref32).abs().max()),
+               "ref_ms": cuda_ms(lambda: droid_net.gru_apply(p16, n16, i16)),
+               "fused_ms": cuda_ms(
+                   lambda: droid_net.gru_apply_fused(p16, n16, i16))}
+    if not max(out["fused_vs_ref"], out["fused_vs_fp32"]) <= GRU_BF16_ATOL:
+        raise SystemExit(f"15c fused GRU (bf16): {out}, limit "
+                         f"{GRU_BF16_ATOL}")
+    return out
+
+
+def fused_gru_slam() -> dict:
+    """15c: phase 5's tiny oracle SLAM run under MNESLAM_GRU_IMPL=fused,
+    its tracker update the DROID update (the fused GRU, random weights)
+    with the oracle's targets in place of its flow: key poses within 5 cm;
+    then `depth_filter`, `upsample_disps` and
+    `keyframe_selection_overlap` on that run's state, GPU against CPU, and
+    `maybe_profile` writing a trace of one frontend update."""
+    import numpy as np
+    import torch
+
+    from mneslam_tpu_torch.data.synthetic import SyntheticBoxDataset
+    from mneslam_tpu_torch.data.rays import rays_from_pose
+    from mneslam_tpu_torch.mapping import keyframe as kf_lib
+    from mneslam_tpu_torch.models import droid_net
+    from mneslam_tpu_torch.slam import MNESLAM
+    from mneslam_tpu_torch.tracking import video as video_lib
+    from mneslam_tpu_torch.utils import metrics as metrics_lib
+
+    cfg = tiny_slam_config(os.path.join(RUN_OUT, "oracle"),
+                           exp_name="oracle_fused_gru")
+    ds = SyntheticBoxDataset(cfg, num_frames=16)
+    intr8 = [60.0 / 8, 60.0 / 8, 47.5 / 8, 31.5 / 8]
+    oracle, agg_fn = oracle_fns(ds, intr8)
+
+    def update_fn(params, state, ii, jj, net, corr, motion, coords1):
+        net, _, _ = droid_net.update_apply(params["update"], net,
+                                           state.inps[ii], corr, motion)
+        _, delta, weight = oracle(params, state, ii, jj, net, corr, motion,
+                                  coords1)
+        return net, delta, weight
+
+    calls = []
+    real = droid_net.gru_apply_fused
+
+    def counted(*a):
+        calls.append(1)
+        return real(*a)
+
+    saved = os.environ.get("MNESLAM_GRU_IMPL")
+    os.environ["MNESLAM_GRU_IMPL"] = "fused"
+    droid_net.gru_apply_fused = counted
+    try:
+        slam = MNESLAM(cfg, ds, device="cuda", update_fn=update_fn,
+                       agg_fn=agg_fn)
+        slam.run_slam()
+        torch.cuda.synchronize()
+    finally:
+        droid_net.gru_apply_fused = real
+        if saved is None:
+            os.environ.pop("MNESLAM_GRU_IMPL")
+        else:
+            os.environ["MNESLAM_GRU_IMPL"] = saved
+    key = np.load(os.path.join(slam.out_dir, "key_est_poses.npy"))
+    ts = np.load(os.path.join(slam.out_dir, "key_timestamps.npy"))
+    ref = np.stack([ds[int(t)]["c2w"] for t in ts])
+    err = float(np.linalg.norm(key[:, :3, 3] - ref[:, :3, 3], axis=-1).max())
+    out = {"keyframes": len(ts), "pose_err_m": err,
+           "fused_gru_calls": len(calls)}
+
+    # the run's keyframe buffer, GPU against CPU
+    tr = slam.tracker
+    n = tr.counter
+    st = tr.state
+    st_cpu = video_lib.VideoState(*(t.cpu() for t in st))
+    intr = tr.intrinsics.cuda()
+    inds = torch.arange(n, device="cuda")
+    thresh = torch.full((n,), 0.05, device="cuda")
+    ca = video_lib.depth_filter(st, intr, inds, thresh).cpu()
+    cb = video_lib.depth_filter(st_cpu, intr.cpu(), inds.cpu(), thresh.cpu())
+    diff = (ca - cb).abs()
+    out["depth_filter"] = {"frames": n, "mean_count": float(ca.mean()),
+                           "pixels_differing": float((diff > 0).float()
+                                                     .mean()),
+                           "max_diff": float(diff.max())}
+    ht, wd = st.disps.shape[1:]
+    mask = torch.randn((n, 576, ht, wd), device="cuda")
+    ua = video_lib.upsample_disps(st, inds, mask).cpu()
+    ub = video_lib.upsample_disps(st_cpu, inds.cpu(), mask.cpu())
+    out["upsample_disps"] = {"shape": list(ua.shape),
+                             "max_err": float((ua - ub).abs().max())}
+    item = ds[int(ts[-1])]
+    c2w = torch.as_tensor(np.asarray(item["c2w"], np.float32))
+    d = torch.as_tensor(np.asarray(item["direction"], np.float32)
+                        ).reshape(-1, 3)
+    depth = torch.as_tensor(np.asarray(item["depth"], np.float32)
+                            ).reshape(-1)
+    ro, rd = rays_from_pose(d, c2w)
+    poses = torch.as_tensor(key, dtype=torch.float32)
+    K = torch.tensor([60.0, 60.0, 47.5, 31.5])
+    H, W = cfg["cam"]["H"], cfg["cam"]["W"]
+    oa = kf_lib.keyframe_selection_overlap(poses.cuda(), ro.cuda(),
+                                           rd.cuda(), depth.cuda(),
+                                           K.cuda(), H, W).cpu()
+    ob = kf_lib.keyframe_selection_overlap(poses, ro, rd, depth, K, H, W)
+    out["overlap"] = {"ratios": [round(float(v), 4) for v in oa],
+                      "max_diff": float((oa - ob).abs().max()),
+                      "rays": int(ro.shape[0])}
+
+    # the trace hook: one frontend update traced to OUT/trace/<tag>
+    trace = os.path.join(OUT, "trace")
+    os.environ["MNESLAM_TRACE_DIR"] = trace
+    try:
+        with metrics_lib.maybe_profile("frontend_update"):
+            with torch.no_grad():
+                tr.frontend.graph.update(tr.state, use_inactive=True)
+            torch.cuda.synchronize()
+    finally:
+        os.environ.pop("MNESLAM_TRACE_DIR")
+    files = os.listdir(os.path.join(trace, "frontend_update"))
+    out["trace_files"] = files
+    out["trace_bytes"] = sum(os.path.getsize(os.path.join(
+        trace, "frontend_update", f)) for f in files)
+    bad = [what for what, ok in (
+        ("key poses", err < ORACLE_TOL_M),
+        ("the fused GRU ran", len(calls) > 0),
+        ("depth_filter", out["depth_filter"]["max_diff"] <= 1.0
+         and out["depth_filter"]["pixels_differing"] <= 0.005
+         and out["depth_filter"]["mean_count"] > 0),
+        ("upsample_disps", out["upsample_disps"]["max_err"] <= 1e-5),
+        ("overlap", out["overlap"]["max_diff"] <= 2.0 / ro.shape[0]
+         and max(out["overlap"]["ratios"]) > 0.5),
+        ("trace", len(files) == 1 and out["trace_bytes"] > 0)) if not ok]
+    if bad:
+        raise SystemExit(f"15c fused-GRU SLAM and tracker extras: {bad}: "
+                         f"{json.dumps(out)}")
+    return out
+
+
+def options_phase(card, fp32_iter_ms) -> dict:
+    """Phase 15 (15a-15c) -> its results. Raises SystemExit on a failed
+    check."""
+    t15 = time.perf_counter()
+    steps = {}
+    parity = [options_parity(smp, dt) for smp, dt in (
+        ("packed", "float32"), ("merged", "float32"), ("rows", "float32"),
+        ("packed", "bfloat16"))]
+    for r in parity:
+        check_options_parity(r)
+        log(f"15a tiny config with colour planes, 8 importance samples and "
+            f"the smoothness term, sampler {r['sampler']}, "
+            f"{r['render_dtype']}, {OPTIONS_STEPS} mapper steps GPU vs CPU: "
+            f"losses cuda {r['losses']['cuda']} cpu {r['losses']['cpu']}; "
+            f"max rel loss diff {r['max_rel_loss_diff']:.3e} (limit "
+            f"{BF16_LOSS_RTOL:g}), max param diff {r['max_param_diff']:.3e} "
+            f"(limit {BF16_PARAM_ATOL:g}); kernel-1 launches "
+            f"{r['scatter_add_rows']} ({r['per_iteration']:g} per "
+            f"iteration, {r['scatter_add_rows_bf16']} on bf16 values)")
+    steps["15a"] = time.perf_counter() - t15
+
+    room = options_room0(card, fp32_iter_ms)
+    k = room["kernel1_colour"]
+    log(f"15b cli.main --mode mapping, configs/Replica/room0.yaml with "
+        f"{json.dumps(OPTIONS_KEYS)} (colour planes "
+        f"{json.dumps(room['c_plane_shapes'])}), {OPTIONS_FRAMES} box-room "
+        f"frames, first_iters and iters cut to {list(OPTIONS_ITERS)}: "
+        f"{room['keyframes']} keyframes, {room['iterations']} iterations in "
+        f"{room['seconds']:.2f} s; last PSNR {room['psnr_last']:.2f} dB "
+        f"(floor {PSNR_FLOOR}); launches {json.dumps(room['launches'])} = "
+        f"{OPTIONS_SCATTERS['packed']} x {room['iterations']}; meshes "
+        f"{room['mesh_verts']} / {room['mesh_verts_culled']} vertices, "
+        f"their colours {room['colors_vs_map']:.4f} from the map's, moved "
+        f"{room['colors_moved_by_c_planes']:.4f} on average by the colour "
+        f"planes; {room['iter_ms']:.3f} ms per iteration against phase 7's "
+        f"fp32 {fp32_iter_ms:.3f} ms, on {card}")
+    for line in k["lines"]:
+        log(f"  15b colour planes: {line}")
+    log(f"15b kernel 1, one iteration's 6 colour-plane calls: kernel "
+        f"{k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, index_add_ "
+        f"{k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
+        f"({k['bytes']} bytes), max abs err {k['max_abs_err']:.3e}, err / "
+        f"tolerance {k['err_ratio']:.3f}, on {card}")
+    steps["15b"] = time.perf_counter() - t15 - sum(steps.values())
+
+    enc = encodings_check()
+    gru = gru_check()
+    slam = fused_gru_slam()
+    log(f"15c encodings GPU vs CPU (max abs diff): {json.dumps(enc)}")
+    log(f"15c fused GRU bf16 at net [{GRU_EDGES}, 128, 40, 80]: "
+        f"{json.dumps(gru)} (limit {GRU_BF16_ATOL}), on {card}")
+    log(f"15c tiny oracle SLAM under MNESLAM_GRU_IMPL=fused: "
+        f"{json.dumps(slam)} (limit {ORACLE_TOL_M} m)")
+    steps["15c"] = time.perf_counter() - t15 - sum(steps.values())
+    t15 = time.perf_counter() - t15
+    log(f"phase 15 {t15:.1f} s of its budget of {OPTIONS_BUDGET_S:.0f} s"
+        + (": OVER BUDGET, cut its frames or iterations"
+           if t15 > OPTIONS_BUDGET_S else "")
+        + f"; s by step "
+        f"{json.dumps({k: round(v, 1) for k, v in steps.items()})}")
+    return {"seconds": t15, "parity": parity, "room0": room,
+            "encodings": enc, "gru": gru, "slam": slam}
+
+
 def main():
     import numpy as np
     import torch
@@ -3986,16 +4639,21 @@ def main():
     sys.path.insert(0, ROOT)
     from mneslam_tpu_torch.device import resolve_device
     from mneslam_tpu_torch.kernels import build
-    from mneslam_tpu_torch.kernels.scatter_add_rows import (
-        scatter_add_rows, scatter_add_rows_plain)
-    from mneslam_tpu_torch.tools.measure import (FP32_FLOPS, HBM_BYTES_PER_S,
-                                                 cuda_ms)
+    from mneslam_tpu_torch.kernels.scatter_add_rows import scatter_add_rows
     from mneslam_tpu_torch.tools.prof_corr import corr_impl
     from mneslam_tpu_torch.tools.prof_determinism import (
         deterministic, repeat_diff, tracking_parity_run)
 
     resolve_device("cuda")  # TF32 off
     os.makedirs(OUT, exist_ok=True)
+    phase_s, t_mark = {}, [time.perf_counter()]
+
+    def phase_done(name):
+        """Print and keep phase `name`'s seconds (since the last mark)."""
+        now = time.perf_counter()
+        phase_s[name] = now - t_mark[0]
+        t_mark[0] = now
+        log(f"phase {name}: {phase_s[name]:.1f} s")
 
     # 1. card
     card = card_line()
@@ -4008,6 +4666,7 @@ def main():
     log(f"build: {len(libs)} libraries (CUDA kernels and the host "
         f"polygoniser) in {time.perf_counter() - t0:.2f} s: {sorted(libs)}")
 
+    phase_done("2")
     # 3. small parity, GPU vs CPU
     losses, rel, pdiff = small_parity()
     log(f"parity: losses cuda {losses['cuda']} cpu {losses['cpu']}; "
@@ -4015,6 +4674,7 @@ def main():
     if not (rel < 1e-4 and pdiff < PARAM_TOL):
         raise SystemExit("parity: GPU and CPU mapper steps disagree")
 
+    phase_done("3")
     # 3b. mesh parity: the same tiny map meshed on the GPU and on the CPU
     mp = mesh_parity()
     log(f"mesh parity (tiny config, {MESH_PARITY_STEPS} identical mapper "
@@ -4035,6 +4695,7 @@ def main():
                          f"(limit {MESH_PARITY_CM} cm), or the native and "
                          f"numpy polygonisers do")
 
+    phase_done("3b")
     # 4. tracking parity, GPU vs CPU: the GPU side twice by default (its
     #    sums are not deterministic; printed) and twice with deterministic
     #    algorithms throughout: those two must be bit-identical and hold
@@ -4062,6 +4723,7 @@ def main():
     if bad:
         raise SystemExit(f"tracking parity: GPU and CPU disagree on {bad}")
 
+    phase_done("4")
     # 5. oracle tracking on the card, every lookup through kernel 3
     n_key, pose_err, o_lookups, o_launches = oracle_tracking()
     log(f"oracle tracking (MNESLAM_CORR_IMPL=pallas_per_level): {n_key} "
@@ -4076,6 +4738,7 @@ def main():
                          f"kernel-3 launches and no other correlation "
                          f"kernel, got {o_launches}")
 
+    phase_done("5")
     # 6. oracle backend: past the frontend window, every backend branch
     b_slam, b_res, b_seconds, b_launches = oracle_backend()
     be = b_slam.tracker.backend
@@ -4095,6 +4758,7 @@ def main():
     if b_launches["corr_window"] != lookups(b_slam):
         raise SystemExit("oracle backend: corr_window launches != lookups")
 
+    phase_done("6")
     # 7. the mapping-only path
     slam, cfg, metrics, seconds, launches = main_path()
     n_kf = len(metrics)
@@ -4121,9 +4785,11 @@ def main():
     log(f"terminate: {res}; {time.perf_counter() - t0:.2f} s, of which the "
         f"mesh step {slam.timers.summary()['mesh']['total_s']} s")
 
+    phase_done("7")
     # 7b. the mesh at room0 widths, step by step, and at mesh.voxel_eval
     mesh = mesh_room0(slam, res)
     log(f"room0 mesh (mapping-only map, {card}): {json.dumps(mesh)}")
+    phase_done("7b")
     # 7c. a render panel of the last keyframe
     panel = render_panel(slam)
     log(f"render panel: {json.dumps(panel)}"
@@ -4171,6 +4837,7 @@ def main():
 
     map_launches = launches
 
+    phase_done("7c")
     # 7d. full-state checkpoint and resume on the card
     resume = resume_check()
     log(f"resume (tiny config, interrupted after keyframes 0 and 3, the "
@@ -4183,6 +4850,7 @@ def main():
         raise SystemExit("resume: kernel 1 launches after the resume "
                          f"{resume['launches_after_resume']}")
 
+    phase_done("7d")
     # 8. the SLAM main path past the frontend window
     log(f"SLAM main path: room0 widths (tracking 320 x 640, buffer 250, "
         f"warmup 12, frontend window 25, 91 edge slots), random DROID "
@@ -4340,6 +5008,7 @@ def main():
     if gba_branch != "sparse+chunked":
         raise SystemExit(f"the profiled global BA took {gba_branch}")
 
+    phase_done("8")
     # 9. the same path with MNESLAM_CORR_IMPL=pallas_mxu: kernel 2b
     # (its terminate meshes the box room's bound only: phase 8 meshes the
     # whole room0 bound)
@@ -4366,6 +5035,7 @@ def main():
     log(f"phase 9 {time.perf_counter() - t9:.1f} s for {MXU_FRAMES} frames "
         f"(32 before 14e was added)")
 
+    phase_done("9")
     # 10. kernels against their plain versions at the main path's shapes
     # (a) the contract cases: forced duplicates, untouched rows, dropped
     #     out-of-range rows
@@ -4390,29 +5060,10 @@ def main():
 
     # (b) one mapping iteration's six calls with the path's real indices
     calls = path_scatter_inputs(slam, gen)
-    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
-              "bound_ms": 0.0}
-    for name, idx, vals, n_rows in calls:
-        err, ratio = check_scatter(idx, vals, n_rows)
-        max_err = max(max_err, err)
-        nu, width = vals.shape
-        ms = cuda_ms(lambda: scatter_add_rows(idx, vals, n_rows))
-        plain = cuda_ms(lambda: scatter_add_rows_plain(idx, vals, n_rows))
-        lib = cuda_ms(lambda: torch.zeros(
-            (n_rows, width), device="cuda").index_add_(0, idx, vals))
-        nbytes = nu * width * 4 + nu * idx.element_size() + n_rows * width * 4
-        # bytes: each input read once, the table written once; operations:
-        # one fp32 add per value
-        bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, nu * width / FP32_FLOPS)
-        log(f"scatter_add_rows {name}: n_rows {n_rows} nu {nu} width "
-            f"{width}: kernel {ms:.4f} ms, plain {plain:.4f} ms, index_add_ "
-            f"{lib:.4f} ms, bound {1e3 * bound:.1f} us ({nbytes} bytes at "
-            f"3.35 TB/s), max abs err {err:.3e}, err / tolerance {ratio:.3f}")
-        totals["ms"] += ms
-        totals["plain_ms"] += plain
-        totals["library_ms"] += lib
-        totals["bytes"] += nbytes
-        totals["bound_ms"] += bound
+    totals = scatter_call_times(calls)
+    for line in totals["lines"]:
+        log(line)
+    max_err = max(max_err, totals["max_abs_err"])
     bound_ms = totals["bound_ms"]
     log(f"scatter_add_rows, one iteration's {len(calls)} calls: kernel "
         f"{totals['ms']:.4f} ms, plain {totals['plain_ms']:.4f} ms, "
@@ -4423,6 +5074,7 @@ def main():
     #     timed in turns with their row design of the first port
     corr = corr_kernels(slam_s)
 
+    phase_done("10")
     # 11. the TPU probes on the H100, with the counts set to 0 just before
     #     and read just after
     real = [(f"real:{name}", idx, vals, n_rows)
@@ -4444,18 +5096,32 @@ def main():
         + (": OVER BUDGET, trim the sweep" if probes["seconds"] > 90
            else ""))
 
+    phase_done("11")
     # 12. multi-agent collaboration
     cp, ma_launches = collaboration(slam, card)
 
+    phase_done("12")
     # 13. the shipped configs on files: image I/O, the TUM path, the bf16
     #     mapping path
     files = files_phase(card, iter_ms, kf_ms)
     tum, fast = files["tum"], files["fast"]
     corr["corr_window"]["tum_frontend"] = tum["corr"]
 
+    phase_done("13")
     # 14. the row-sharded mapper (1 rank over NCCL, 4 ranks over gloo) and
     #     the mesh fleet
     shard = shard_phase(card)
+
+    phase_done("14")
+    # 15. the rest of the scene representation and tracker: colour planes,
+    #     importance resampling, the smoothness term, the samplers, the
+    #     encodings and the hash grid, the fused GRU, the tracker extras
+    opts = options_phase(card, iter_ms)
+    colour = opts["room0"]["kernel1_colour"]
+
+    phase_done("15")
+    log(f"seconds by phase: "
+        f"{json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
 
     kernels = [{
         "name": "scatter_add_rows",
@@ -4473,7 +5139,22 @@ def main():
                              "tum_files": tum["launches"]["scatter_add_rows"],
                              "mapping_bf16":
                                  fast["launches"]["scatter_add_rows_bf16"],
-                             **shard["launches"]},
+                             **shard["launches"],
+                             "options_room0": opts["room0"]["launches"][
+                                 "scatter_add_rows"],
+                             "options_parity": {
+                                 f"{r['sampler']}_{r['render_dtype']}":
+                                     r["scatter_add_rows"]
+                                 for r in opts["parity"]}},
+        "colour_planes": {
+            "timed_as": "sum of one room0 iteration's 6 colour-plane calls "
+                        "(c_planes_res 0.08 / 0.02)",
+            **{k: colour[k] for k in ("ms", "plain_ms", "library_ms",
+                                      "bound_ms", "bytes", "max_abs_err",
+                                      "err_ratio")},
+            "bound_by": "bytes",
+            "launches_per_iteration": OPTIONS_SCATTERS,
+            "iter_ms": opts["room0"]["iter_ms"]},
         "bf16": {**fast["kernel1_bf16"],
                  "route": "workspace: accumulate + emit",
                  "launches": fast["launches"]["scatter_add_rows_bf16"],
@@ -4486,7 +5167,7 @@ def main():
                             "in bf16",
                  "iter_ms": fast["iter_ms"],
                  "keyframe_ms": fast["keyframe_ms"]},
-        "max_abs_err": max_err,
+        "max_abs_err": max(max_err, colour["max_abs_err"]),
         "max_err": max_err,
         "tolerance": f"{SCATTER_RTOL:g} x sum|vals| + {SCATTER_ATOL:g}",
         "ms": totals["ms"],
@@ -4554,8 +5235,8 @@ def main():
     if unmeasured:
         raise SystemExit(f"kernel numbers not measured: {unmeasured}")
     log(f"chip_smoke.py {time.perf_counter() - t_all:.1f} s in all, the "
-        f"build included (before 14e: about 800 s, phase 12 200.3 s, "
-        f"phase 14 110.3 s; PERF.md section 6)")
+        f"build included (before phase 15: 801.2 s, phase 14 164.6 s; "
+        f"PERF.md section 6)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

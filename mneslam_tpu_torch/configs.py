@@ -98,6 +98,8 @@ ROOM0 = {
              "voxel_final": 0.02},
     "meshing": {"level_set": 0, "resolution": 0.02, "mesh_bound_scale": 1.02},
     "planes_res": {"coarse": 0.02, "fine": 0.01, "bound_dividable": 0.02},
+    # read with grid.oneGrid: false (replica.yaml sets oneGrid: True)
+    "c_planes_res": {"coarse": 0.08, "fine": 0.02},
     "model": {"c_dim": 32, "truncation": 0.1, "input_ch": 64,
               "input_ch_pos": 48},
     "distillation": {"use_bound_overlap": True},

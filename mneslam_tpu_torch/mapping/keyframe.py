@@ -80,3 +80,24 @@ def sample_global_rays(db: KeyframeDB, generator: Optional[torch.Generator],
                             device=db.rays.device)
     idx = idx.long()
     return db.rays.reshape(-1, 7)[idx], idx // rays_per_kf
+
+
+def keyframe_selection_overlap(db_poses: torch.Tensor, rays_o: torch.Tensor,
+                               rays_d: torch.Tensor, target_d: torch.Tensor,
+                               intrinsics: torch.Tensor, H: int,
+                               W: int) -> torch.Tensor:
+    """Share of the current frame's back-projected points [R] (rays_o +
+    rays_d * target_d, world) that each candidate keyframe (c2w poses
+    [K, 4, 4], OpenGL: the camera looks down -z) sees inside its H x W
+    image with depth above 0.01 (NICE-SLAM's selection) -> ratios [K];
+    callers pick the top slots."""
+    pts = rays_o + rays_d * target_d[:, None]
+    w2c = torch.linalg.inv(db_poses)
+    cam = torch.einsum("kij,rj->kri", w2c[:, :3, :3], pts) \
+        + w2c[:, None, :3, 3]
+    z = -cam[..., 2]
+    fx, fy, cx, cy = (intrinsics[i] for i in range(4))
+    u = fx * (cam[..., 0] / torch.clamp(z, min=1e-6)) + cx
+    v = -fy * (cam[..., 1] / torch.clamp(z, min=1e-6)) + cy
+    inb = (z > 0.01) & (u >= 0) & (u < W) & (v >= 0) & (v < H)
+    return inb.float().mean(dim=1)

@@ -9,8 +9,13 @@ once per keyframe.
 
 Optimizer: Adam(betas=(0.9, 0.99)) in two groups, the decoder at
 lr_decoder with weight decay 1e-6 (PyTorch's coupled L2, the same as
-`optax.add_decayed_weights` before `optax.adam`) and the planes at lr_embed
-with eps 1e-15.
+`optax.add_decayed_weights` before `optax.adam`) and the planes (the
+colour planes too) at lr_embed with eps 1e-15.
+
+With `training.smooth_weight` > 0 the loss adds the TV smoothness term
+(`SceneRep.smoothness`, its uniforms drawn after the render's, or given
+through `u`); on the sharded paths every rank adds the same term, so the
+gradient of loss / ranks summed over the ranks holds it once.
 
 With a `parallel.mesh.Mesh` of several ranks the loop runs on every rank
 of its shard group (`shard_axes`) in lockstep (one process per shard, the
@@ -28,7 +33,8 @@ over ranks is again a sum):
   iteration the collective seam (`parallel.mesh.make_row_sharded_pack`)
   packs the local rows and all-gathers the packed tables; its backward
   reduce-scatters the table cotangents and folds them row-locally, so the
-  fold and Adam run on 1/N of each plane. Decoder gradients are
+  fold and Adam run on 1/N of each plane (the colour planes as the
+  geometry planes). Decoder gradients are
   all-reduced. `mapping.shard_gather_every` k: one gather per k
   iterations (Adam every iteration); `mapping.shard_prefetch` 1: tables
   one iteration stale, 2: gradients applied one iteration late too.
@@ -46,7 +52,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..data import rays as rays_lib
-from ..models.scene_rep import SceneRep, param_leaves
+from ..models.scene_rep import PLANE_GROUPS, SceneRep, param_leaves
 from ..ops import interp
 from ..parallel import mesh as mesh_lib
 from . import keyframe as kf_lib
@@ -90,9 +96,6 @@ class Mapper:
         its own `ray` group, and the `agent` axis carries the agents
         (`mneslam_tpu/mapping/mapper.py:58-110`). The ray counts round up
         to a multiple of the shard count, so the batch splits evenly."""
-        if float(config["training"].get("smooth_weight", 0.0)) > 0.0:
-            raise ValueError("training.smooth_weight > 0 (the smoothness "
-                             "loss) is not ported")
         self.config = config
         self.scene = scene
         self.device = scene.device
@@ -123,11 +126,24 @@ class Mapper:
 
     # ------------------------------------------------------------------
 
+    def _smoothness(self, params, generator, u) -> Optional[torch.Tensor]:
+        """The TV smoothness term when training.smooth_weight > 0, else
+        None."""
+        tr = self.config["training"]
+        if float(tr.get("smooth_weight", 0.0)) <= 0.0:
+            return None
+        return self.scene.smoothness(
+            params, u=u, generator=generator,
+            sample_points=int(tr.get("smooth_pts", 32)),
+            voxel_size=float(tr.get("smooth_vox", 0.1)),
+            margin=float(tr.get("smooth_margin", 0.05)))
+
     def _loss_fn(self, params, rays_o, rays_d, target_rgb, target_d,
                  generator=None, u=None):
         ret = self.scene.forward(params, rays_o, rays_d, target_rgb,
                                  target_d, generator=generator, u=u)
-        return self.scene.get_loss_from_ret(ret), ret
+        smooth = self._smoothness(params, generator, u)
+        return self.scene.get_loss_from_ret(ret, smooth_loss=smooth), ret
 
     def _build_rays(self, db, kf_poses, dir_flat, rgb_flat, d_flat, cur_pose,
                     HW: int, generator, use_cur: bool,
@@ -172,7 +188,8 @@ class Mapper:
         returns the last step's metrics, still on the device.
         cur_frame: direction [H,W,3], rgb [H,W,3], depth [H,W]. `draws`
         (tests): per iteration (g_idx, c_idx, u) replacing the generator's
-        draws, u the whole batch's perturbation uniforms [n_rays, S]."""
+        draws, u the whole batch's uniforms (the perturbation's [n_rays,
+        S], or a dict of parts: `models.scene_rep.uniforms`)."""
         if self.shard_rows:
             return self._optimize_row_sharded(state, cur_frame, cur_pose,
                                               generator, iters, use_cur,
@@ -225,7 +242,7 @@ class Mapper:
         else:
             blocks, _, pairs = self._shard_plane_state(state)
             params = {k: v for k, v in state.params.items()
-                      if k != "planes"}
+                      if k not in PLANE_GROUPS}
             self._shard_loss_backward(self._packed_params(params, blocks),
                                       batch, generator, u)
             self._all_reduce_grads(param_leaves(params))
@@ -255,7 +272,10 @@ class Mapper:
         ret = self.scene.forward(params, ro, rd, rgb, td, generator=generator,
                                  u=u, group=group,
                                  rng_block=(n_total, lo))
-        loss = self.scene.get_loss_from_ret(ret) / group.size
+        # the smoothness term is the same on every rank (replicated)
+        smooth = self._smoothness(params, generator, u)
+        loss = self.scene.get_loss_from_ret(ret, smooth_loss=smooth) \
+            / group.size
         loss.backward()
         return {"loss": loss.detach() * group.size,
                 "psnr": ret["psnr"].detach(),
@@ -276,9 +296,10 @@ class Mapper:
         n = self.group.size
         return -(-H // n) * n
 
-    def _shape(self, name: str, lvl: int) -> tuple:
-        """(C, H, W) of plane `name` at level `lvl`."""
-        return tuple(int(s) for s in self.scene.plane_shapes[lvl][name])
+    def _shape(self, group: str, name: str, lvl: int) -> tuple:
+        """(C, H, W) of plane `name` at level `lvl` of `group` ("planes"
+        or "c_planes")."""
+        return tuple(int(s) for s in self.scene.shapes_of(group)[lvl][name])
 
     def _seam_fn(self, true_shape) -> mesh_lib.RowSeam:
         """The collective seam of one plane shape (cached). The cast to
@@ -313,19 +334,22 @@ class Mapper:
 
     def _shard_plane_state(self, state: MapperState):
         """Entering the row-sharded loop: a leaf block [B, C] per plane
-        leaf, and an Adam over the decoder leaves (their state shared with
-        the state's optimizer) and the blocks (their rows of the moments,
-        the step count carried) -> (blocks {name: [block per level]},
-        Adam, [(leaf, block, shape)])."""
+        leaf (colour planes too), and an Adam over the decoder leaves
+        (their state shared with the state's optimizer) and the blocks
+        (their rows of the moments, the step count carried) -> (blocks
+        {group: {name: [block per level]}}, Adam, [(leaf, block,
+        shape)])."""
         orig = state.optimizer
         pairs = []
         blocks = {}
-        for name, lst in state.params["planes"].items():
-            for lvl, leaf in enumerate(lst):
-                shape = self._shape(name, lvl)
-                blk = self._to_block(leaf, shape).requires_grad_(True)
-                blocks.setdefault(name, []).append(blk)
-                pairs.append((leaf, blk, shape))
+        for group in PLANE_GROUPS:
+            for name, lst in state.params.get(group, {}).items():
+                for lvl, leaf in enumerate(lst):
+                    shape = self._shape(group, name, lvl)
+                    blk = self._to_block(leaf, shape).requires_grad_(True)
+                    blocks.setdefault(group, {}).setdefault(
+                        name, []).append(blk)
+                    pairs.append((leaf, blk, shape))
         block_of = {id(leaf): blk for leaf, blk, _ in pairs}
         groups = [dict({k: v for k, v in g.items() if k != "params"},
                        params=[block_of.get(id(t), t) for t in g["params"]])
@@ -361,24 +385,30 @@ class Mapper:
 
     def _gather_tables(self, blocks):
         """Forward-only pack + all-gather of every plane block: the tables
-        of the stale-table modes."""
-        return {name: [self._seam_fn(self._shape(name, lvl)).gather(blk)
-                       for lvl, blk in enumerate(lst)]
-                for name, lst in blocks.items()}
+        of the stale-table modes, {group: {name: [per level]}}."""
+        return {group: {name: [self._seam_fn(self._shape(
+                            group, name, lvl)).gather(blk)
+                        for lvl, blk in enumerate(lst)]
+                        for name, lst in planes.items()}
+                for group, planes in blocks.items()}
 
     def _packed_params(self, params, blocks, tables=None):
-        """The params tree with every plane as an `interp.PackedPlane`
-        from the seam (or, with `tables`, the seam's `consume` half)."""
-        planes = {}
-        for name, lst in blocks.items():
-            planes[name] = []
-            for lvl, blk in enumerate(lst):
-                shape = self._shape(name, lvl)
-                seam = self._seam_fn(shape)
-                tbl = (seam(blk) if tables is None
-                       else seam.consume(blk, tables[name][lvl]))
-                planes[name].append(interp.PackedPlane(tbl, shape))
-        return dict(params, planes=planes)
+        """The params tree with every plane (geometry and colour) as an
+        `interp.PackedPlane` from the seam (or, with `tables`, the seam's
+        `consume` half)."""
+        out = dict(params)
+        for group, planes in blocks.items():
+            packed = {}
+            for name, lst in planes.items():
+                packed[name] = []
+                for lvl, blk in enumerate(lst):
+                    shape = self._shape(group, name, lvl)
+                    seam = self._seam_fn(shape)
+                    tbl = (seam(blk) if tables is None
+                           else seam.consume(blk, tables[group][name][lvl]))
+                    packed[name].append(interp.PackedPlane(tbl, shape))
+            out[group] = packed
+        return out
 
     def _optimize_row_sharded(self, state, cur_frame, cur_pose, generator,
                               iters, use_cur, draws):
@@ -398,7 +428,8 @@ class Mapper:
         rgb_flat = cur_frame["rgb"].reshape(-1, 3)
         d_flat = cur_frame["depth"].reshape(-1)
         blocks, opt, pairs = self._shard_plane_state(state)
-        params = {k: v for k, v in state.params.items() if k != "planes"}
+        params = {k: v for k, v in state.params.items()
+                  if k not in PLANE_GROUPS}
         decoder = param_leaves(params)
         leaves = decoder + [blk for _, blk, _ in pairs]
 

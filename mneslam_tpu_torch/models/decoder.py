@@ -3,12 +3,14 @@
 Port of `mneslam_tpu/models/decoder.py`: bias-free ReLU MLPs (2 layers x
 32 hidden at the Replica settings). Weights keep the JAX layout
 [in, out] and apply as `x @ W`, so converted JAX weights load as they are.
+With `grid.oneGrid: false` the colour net also sees the colour planes'
+features.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -47,14 +49,19 @@ def mlp_apply_blocks(weights: List[torch.Tensor],
 
 
 def decoder_dims(config):
-    """(sdf layer sizes, color layer sizes) for the oneGrid decoder."""
+    """(sdf layer sizes, color layer sizes). The colour net's input is the
+    positional encoding and the geometric feature, and with
+    `grid.oneGrid: false` the colour planes' features too."""
     dec = config["decoder"]
     input_ch = config["model"]["input_ch"]
     input_ch_pos = config["model"]["input_ch_pos"]
     geo = dec["geo_feat_dim"]
     sdf_dims = ([input_ch + input_ch_pos]
                 + [dec["hidden_dim"]] * (dec["num_layers"] - 1) + [1 + geo])
-    color_dims = ([input_ch_pos + geo]
+    color_in = input_ch_pos + geo
+    if not bool(config["grid"]["oneGrid"]):
+        color_in += input_ch
+    color_dims = ([color_in]
                   + [dec["hidden_dim_color"]] * (dec["num_layers_color"] - 1)
                   + [3])
     return sdf_dims, color_dims
@@ -62,18 +69,21 @@ def decoder_dims(config):
 
 def init_decoder(config, generator: torch.Generator,
                  device) -> Dict[str, List[torch.Tensor]]:
-    """{sdf, color} weights. oneGrid only: the color net sees the positional
-    encoding and the geometric feature."""
+    """{sdf, color} weights of `decoder_dims`' sizes."""
     sdf_dims, color_dims = decoder_dims(config)
     return {"sdf": init_mlp(sdf_dims, generator, device),
             "color": init_mlp(color_dims, generator, device)}
 
 
 def decoder_apply(params: Dict[str, List[torch.Tensor]],
-                  embed: Sequence[torch.Tensor],
-                  embed_pos: torch.Tensor) -> torch.Tensor:
-    """(plane feature blocks, pos enc) -> raw [N, 4] = (rgb logits, sdf)."""
+                  embed: Sequence[torch.Tensor], embed_pos: torch.Tensor,
+                  embed_color: Optional[Sequence[torch.Tensor]] = None
+                  ) -> torch.Tensor:
+    """(plane feature blocks, pos enc[, colour-plane feature blocks]) ->
+    raw [N, 4] = (rgb logits, sdf). The colour net's blocks come in the
+    JAX order [embed_pos, *embed_color, geo_feat]."""
     h = mlp_apply_blocks(params["sdf"], [*embed, embed_pos])
     sdf, geo_feat = h[..., :1], h[..., 1:]
-    rgb = mlp_apply_blocks(params["color"], [embed_pos, geo_feat])
+    rgb = mlp_apply_blocks(params["color"],
+                           [embed_pos, *(embed_color or ()), geo_feat])
     return torch.cat([rgb, sdf], dim=-1)

@@ -10,6 +10,7 @@ edge mask, so padded edge slots stay inert.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -70,10 +71,15 @@ def init_encoder(generator: torch.Generator, out_dim: int,
 
 
 # ---------------------------------------------------------------------------
-# ConvGRU with global context gating (gru.py:5-33), the reference form
+# ConvGRU with global context gating (gru.py:5-33): the reference form and
+# the fused form
 # ---------------------------------------------------------------------------
 
 def gru_apply(p: Dict, net: torch.Tensor, inp: torch.Tensor) -> torch.Tensor:
+    """The ConvGRU step; `MNESLAM_GRU_IMPL=fused` (read per call, as in
+    the JAX package) runs `gru_apply_fused` instead."""
+    if os.environ.get("MNESLAM_GRU_IMPL", "ref") == "fused":
+        return gru_apply_fused(p, net, inp)
     net_inp = torch.cat([net, inp.to(net.dtype)], dim=1)
     glo = torch.sigmoid(conv2d(p["w"], net)) * net
     glo = glo.mean(dim=(2, 3), keepdim=True)
@@ -85,6 +91,35 @@ def gru_apply(p: Dict, net: torch.Tensor, inp: torch.Tensor) -> torch.Tensor:
     q = torch.tanh(conv2d(p["convq"], torch.cat([r * net, inp.to(r.dtype)],
                                                  dim=1), padding=1)
                    + conv2d(p["convq_glo"], glo))
+    return (1 - z) * net + z * q
+
+
+def gru_apply_fused(p: Dict, net: torch.Tensor, inp: torch.Tensor
+                    ) -> torch.Tensor:
+    """`gru_apply` with merged gate convolutions, the same math:
+    conv([net, inp], W) = conv(net, W[:, :h]) + conv(inp, W[:, h:]), so
+    the z / r / q gates' inp halves run as one 3x3 conv over `inp` (3h
+    outputs) and the z / r net halves as one over `net` (2h outputs); only
+    q's net half stays apart (it reads r * net). No [net, inp] concat is
+    built. In the weights' dtype (bf16 on the GPU, fp32 on the CPU)."""
+    h = net.shape[1]
+    wz, wr, wq = (p[k]["weight"] for k in ("convz", "convr", "convq"))
+    w_inp = torch.cat([wz[:, h:], wr[:, h:], wq[:, h:]], dim=0)
+    w_net = torch.cat([wz[:, :h], wr[:, :h]], dim=0)
+
+    glo = torch.sigmoid(conv2d(p["w"], net)) * net
+    glo = glo.mean(dim=(2, 3), keepdim=True)
+
+    zi, ri, qi = conv2d({"weight": w_inp}, inp, padding=1).chunk(3, dim=1)
+    zn, rn = conv2d({"weight": w_net}, net, padding=1).chunk(2, dim=1)
+
+    def bias(k):
+        return p[k]["bias"][None, :, None, None]
+
+    z = torch.sigmoid(zi + zn + bias("convz") + conv2d(p["convz_glo"], glo))
+    r = torch.sigmoid(ri + rn + bias("convr") + conv2d(p["convr_glo"], glo))
+    qn = conv2d({"weight": wq[:, :h]}, r * net, padding=1)
+    q = torch.tanh(qi + qn + bias("convq") + conv2d(p["convq_glo"], glo))
     return (1 - z) * net + z * q
 
 

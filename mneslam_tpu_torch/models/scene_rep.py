@@ -1,30 +1,44 @@
 """Tri-plane neural scene representation with SDF volume rendering.
 
-Port of `mneslam_tpu/models/scene_rep.py` for the mapping slice: coarse +
-fine tri-plane feature grids (ESLAM) sampled by the packed sampler, OneBlob
-positional encoding, tiny SDF/color MLPs, truncation-windowed SDF->weight
-compositing with depth-guided stratified sampling, and the rgb / depth /
-free-space / SDF loss suite, and the chunked no-grad queries and renders
-of meshing and evaluation (`query_sdf`, `query_color`,
-`render_surface_color`, `render_image_rays`; `query_tables` packs each
-plane once for them). The model is a set of functions over a parameter
-dict:
+Port of `mneslam_tpu/models/scene_rep.py`: coarse + fine tri-plane
+feature grids (ESLAM), the positional encoding (`pos.enc`), tiny SDF/color
+MLPs, truncation-windowed SDF->weight compositing with depth-guided
+stratified sampling and optional hierarchical importance resampling, the
+rgb / depth / free-space / SDF loss suite and the TV smoothness term, and
+the chunked no-grad queries and renders of meshing and evaluation
+(`query_sdf`, `query_color`, `render_surface_color`, `render_image_rays`;
+`query_tables` packs each plane once for them). The model is a set of
+functions over a parameter dict:
 
     {"planes": {"xy": [coarse, fine], "xz": [...], "yz": [...]},  # [C, H, W]
+     "c_planes": {...},          # colour planes, with grid.oneGrid: false
      "decoder": {"sdf": [W0, W1], "color": [W0, W1]}}             # [in, out]
 
-Ported configurations: `grid.oneGrid: true`, `training.n_importance: 0`,
-`training.render_dtype: float32` or `bfloat16` (the Replica settings).
-Others raise. Under bfloat16 every query (renders, training and meshing)
-casts the parameters and the points to bf16 at its top, so the plane
-features and the decoders run in bf16 and give fp32 raw outputs; the
-parameters, Adam and the losses stay fp32, and autograd brings fp32
-gradients back to the fp32 leaves. The plane sampler's backward then hands
-kernel 1 bf16 values, which it sums in fp32.
+Every option of the JAX package runs: `grid.oneGrid` true or false,
+`training.n_importance` >= 0, `training.render_dtype` float32 or bfloat16
+(other dtypes raise), and the plane sampler of `MNESLAM_PLANE_SAMPLER`,
+read at import as in the JAX package: `packed` (default; one packed-row
+gather per point and plane, kernel 1 in the backward), `merged` (one
+gather per point and orientation from the coarse level upsampled onto the
+nested fine grid beside the fine level, kernel 1 on the [8C]-wide table)
+or `rows` (four corner gathers, plain autograd). Under bfloat16 every
+query (renders, training and meshing) casts the parameters and the points
+to bf16 at its top, so the plane features and the decoders run in bf16
+and give fp32 raw outputs; the parameters, Adam and the losses stay fp32,
+and autograd brings fp32 gradients back to the fp32 leaves. The plane
+sampler's backward then hands kernel 1 bf16 values, which it sums in
+fp32. The smoothness term is not cast, as in the JAX package: its kernel-1
+calls take fp32 values under either dtype.
+
+Random draws come from a `torch.Generator`, or pre-drawn through `u`
+(torch cannot replay `jax.random`): a tensor (the depth perturbation) or a
+dict of the parts {"perturb": [n_rays, S], "importance": [n_rays,
+n_importance], "smooth_offset": [3], "smooth_jitter": [3]}.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
 import numpy as np
@@ -34,6 +48,22 @@ from ..ops import encodings, interp
 from ..parallel.mesh import all_reduce_sum
 from . import decoder as decoder_lib
 from .droid_net import cast_params
+
+
+# "packed" (default), "merged" or "rows"; see the module docstring
+_PLANE_SAMPLER = os.environ.get("MNESLAM_PLANE_SAMPLER", "packed")
+PLANE_SAMPLERS = ("packed", "merged", "rows")
+PLANE_GROUPS = ("planes", "c_planes")   # the parameter dict's plane trees
+
+
+def uniforms(u, part: str) -> Optional[torch.Tensor]:
+    """The `part` of pre-drawn uniforms `u` (see the module docstring): a
+    tensor is the perturbation's; None where not given."""
+    if u is None:
+        return None
+    if isinstance(u, dict):
+        return u.get(part)
+    return u if part == "perturb" else None
 
 
 def _plane_shapes(bound: np.ndarray, resolutions, c_dim: int,
@@ -73,11 +103,9 @@ class SceneRep:
         self.config = config
         self.device = torch.device(device)
         tr = config["training"]
-        if not bool(config["grid"]["oneGrid"]):
-            raise ValueError("grid.oneGrid: false (color planes) is not "
-                             "ported")
-        if int(tr.get("n_importance", 0)) > 0:
-            raise ValueError("training.n_importance > 0 is not ported")
+        if _PLANE_SAMPLER not in PLANE_SAMPLERS:
+            raise ValueError(f"MNESLAM_PLANE_SAMPLER={_PLANE_SAMPLER!r}: "
+                             f"one of {PLANE_SAMPLERS}")
         render_dtype = str(tr.get("render_dtype", "float32"))
         if render_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"training.render_dtype {render_dtype!r}: "
@@ -98,10 +126,15 @@ class SceneRep:
         self.bounding_box = torch.as_tensor(bb, device=self.device)
         self.bound = torch.as_tensor(bound, device=self.device)
 
+        self.one_grid = bool(config["grid"]["oneGrid"])
         c_dim = config["model"]["c_dim"]
         self.plane_shapes = _plane_shapes(
             bound, [config["planes_res"]["coarse"],
                     config["planes_res"]["fine"]], c_dim)
+        if not self.one_grid:
+            self.c_plane_shapes = _plane_shapes(
+                bound, [config["c_planes_res"]["coarse"],
+                        config["c_planes_res"]["fine"]], c_dim)
         self.pos_encode, self.input_ch_pos = encodings.get_encoder(
             config["pos"]["enc"], n_bins=config["pos"]["n_bins"])
 
@@ -113,6 +146,7 @@ class SceneRep:
         self.range_d = float(tr["range_d"])
         self.n_samples_d = int(tr["n_samples_d"])
         self.n_samples = int(tr["n_samples"])
+        self.n_importance = int(tr.get("n_importance", 0))
         self.perturb = float(tr["perturb"]) > 0.0
         self.white_bkgd = bool(tr["white_bkgd"])
         self.truncation_model = float(config["model"]["truncation"])
@@ -122,17 +156,28 @@ class SceneRep:
     # params
     # ------------------------------------------------------------------
 
+    def shapes_of(self, group: str) -> list:
+        """Per-level plane shapes of "planes" or "c_planes"."""
+        return self.plane_shapes if group == "planes" else \
+            self.c_plane_shapes
+
     def init_params(self, generator: torch.Generator) -> Dict:
-        """Planes ~ 0.01 N(0, 1), decoder ~ nn.Linear's uniform init; every
-        leaf a float32 leaf tensor with requires_grad."""
-        planes = {"xy": [], "xz": [], "yz": []}
-        for s in self.plane_shapes:
-            for name in ("xy", "xz", "yz"):
-                planes[name].append(0.01 * torch.randn(
-                    s[name], generator=generator, device=self.device))
-        params = {"planes": planes,
+        """Planes (and colour planes) ~ 0.01 N(0, 1), decoder ~
+        nn.Linear's uniform init; every leaf a float32 leaf tensor with
+        requires_grad. Drawn planes, decoder, colour planes."""
+        def init_planes(shapes):
+            planes = {"xy": [], "xz": [], "yz": []}
+            for s in shapes:
+                for name in ("xy", "xz", "yz"):
+                    planes[name].append(0.01 * torch.randn(
+                        s[name], generator=generator, device=self.device))
+            return planes
+
+        params = {"planes": init_planes(self.plane_shapes),
                   "decoder": decoder_lib.init_decoder(
                       self.config, generator, self.device)}
+        if not self.one_grid:
+            params["c_planes"] = init_planes(self.c_plane_shapes)
         for leaf in param_leaves(params):
             leaf.requires_grad_(True)
         return params
@@ -154,17 +199,36 @@ class SceneRep:
     def plane_feature_blocks(self, planes: Dict, p_nor: torch.Tensor,
                              tables: Optional[Dict] = None) -> list:
         """Per-level feature blocks [N, C]: xy + xz + yz samples of that
-        level (ESLAM's summation). `tables`: the planes already packed
-        (`query_tables`; forward only). A plane given as an
-        `interp.PackedPlane` is sampled from its table."""
+        level (ESLAM's summation), by `MNESLAM_PLANE_SAMPLER`. `tables`:
+        the planes already prepared for the sampler (`query_tables`;
+        forward only). A plane given as an `interp.PackedPlane` (the
+        row-sharded mapper's seam) is sampled from its table, and such
+        planes never merge."""
         uv = {"xy": p_nor[:, [0, 1]], "xz": p_nor[:, [0, 2]],
               "yz": p_nor[:, [1, 2]]}
+        if _PLANE_SAMPLER == "merged" and self._mergeable(planes):
+            C = planes["xy"][0].shape[0]
+            feats = None
+            for name in ("xy", "xz", "yz"):
+                fine = planes[name][1]
+                table = (tables[name][0] if tables is not None else
+                         interp.pack_corners(self._merged_plane(planes,
+                                                                name)))
+                # one [8C]-row gather per point; kernel 1 in the backward
+                g = interp.sample_packed_table(table, uv[name],
+                                               *fine.shape[1:])
+                feats = g if feats is None else feats + g
+            return [feats[:, :C], feats[:, C:]]
+
         def sample(name, lvl):
             pl = planes[name][lvl]
             if isinstance(pl, interp.PackedPlane):
                 # the row-sharded mapper's seam: the table is the leaf
                 return interp.sample_packed_table(pl.packed, uv[name],
                                                   *pl.shape[1:])
+            if _PLANE_SAMPLER == "rows":
+                return interp.grid_sample_2d(
+                    pl if tables is None else tables[name][lvl], uv[name])
             if tables is not None:
                 return interp.sample_packed_table(tables[name][lvl],
                                                   uv[name], *pl.shape[1:])
@@ -176,6 +240,36 @@ class SceneRep:
                          + sample("yz", lvl))
         return feats
 
+    def plane_features(self, planes: Dict, p_nor: torch.Tensor
+                       ) -> torch.Tensor:
+        """The feature blocks side by side, [N, levels * C]."""
+        return torch.cat(self.plane_feature_blocks(planes, p_nor), dim=-1)
+
+    @staticmethod
+    def _mergeable(planes: Dict) -> bool:
+        """Two levels whose grids nest (fine = k (coarse - 1) + 1 nodes,
+        one k for both axes of each orientation), none a PackedPlane."""
+        if len(planes["xy"]) != 2:
+            return False
+        if any(isinstance(pl, interp.PackedPlane)
+               for lst in planes.values() for pl in lst):
+            return False
+        for name in ("xy", "xz", "yz"):
+            c, f = planes[name][0].shape, planes[name][1].shape
+            if (f[1] - 1) % (c[1] - 1) or (f[2] - 1) % (c[2] - 1):
+                return False
+            if (f[1] - 1) // (c[1] - 1) != (f[2] - 1) // (c[2] - 1):
+                return False
+        return True
+
+    @staticmethod
+    def _merged_plane(planes: Dict, name: str) -> torch.Tensor:
+        """The coarse level upsampled onto the fine grid beside the fine
+        level, [2C, Hf, Wf] (the merged sampler's plane)."""
+        coarse, fine = planes[name][0], planes[name][1]
+        k = (fine.shape[1] - 1) // (coarse.shape[1] - 1)
+        return torch.cat([interp.upsample_exact(coarse, k), fine], dim=0)
+
     def query_color_sdf(self, params: Dict, pts: torch.Tensor,
                         tables: Optional[Dict] = None) -> torch.Tensor:
         """World points [N, 3] -> raw [N, 4] (rgb logits, sdf), computed
@@ -186,21 +280,52 @@ class SceneRep:
             pts = pts.to(self.compute_dtype)
         # the bounds are fp32: the plane coordinates and the encoding are
         # computed in fp32 from the rounded points, as in the JAX package
-        embed = self.plane_feature_blocks(params["planes"],
-                                          self._normalize(pts), tables)
+        p_nor = self._normalize(pts)
+        embed = self.plane_feature_blocks(params["planes"], p_nor, tables)
         embed_pos = self.pos_encode(self._normalize01(pts)).to(
             embed[0].dtype)
+        embed_color = None
+        if not self.one_grid:
+            embed_color = self.plane_feature_blocks(
+                params["c_planes"], p_nor,
+                None if tables is None else tables["c_planes"])
         return decoder_lib.decoder_apply(params["decoder"], embed,
-                                         embed_pos).float()
+                                         embed_pos, embed_color).float()
+
+    def _sampler_tables(self, planes: Dict) -> Dict:
+        """One plane tree prepared once for the sampler in
+        `compute_dtype`: packed tables per level, the merged table of each
+        orientation, or (rows) the cast planes."""
+        planes = {name: [p.to(self.compute_dtype) for p in lst]
+                  for name, lst in planes.items()}
+        if _PLANE_SAMPLER == "merged" and self._mergeable(planes):
+            return {name: [interp.pack_corners(self._merged_plane(planes,
+                                                                  name))]
+                    for name in ("xy", "xz", "yz")}
+        if _PLANE_SAMPLER == "rows":
+            return planes
+        return {name: [interp.pack_corners(p) for p in lst]
+                for name, lst in planes.items()}
 
     @torch.no_grad()
     def query_tables(self, params: Dict) -> Dict:
-        """Every plane packed once (`interp.pack_corners`) in
-        `compute_dtype`, for the chunked queries of meshing and rendering:
-        {"xy": [per level], ...}."""
-        return {name: [interp.pack_corners(p.to(self.compute_dtype))
-                       for p in params["planes"][name]]
-                for name in ("xy", "xz", "yz")}
+        """Every plane prepared once for the sampler (`pack_corners` for
+        the packed sampler) in `compute_dtype`, for the chunked queries of
+        meshing and rendering: {"xy": [per level], ...}, with the colour
+        planes' tables under "c_planes"."""
+        tables = self._sampler_tables(params["planes"])
+        if not self.one_grid:
+            tables["c_planes"] = self._sampler_tables(params["c_planes"])
+        return tables
+
+    def query_plane_feature_grid(self, params: Dict, pts: torch.Tensor
+                                 ) -> torch.Tensor:
+        """Raw geometry-plane features (before the decoders) at world
+        points [..., 3] -> [..., levels * C], for the smoothness term. Not
+        cast to `compute_dtype`, as in the JAX package."""
+        flat = pts.reshape(-1, 3)
+        emb = self.plane_features(params["planes"], self._normalize(flat))
+        return emb.reshape(*pts.shape[:-1], emb.shape[-1])
 
     @torch.no_grad()
     def query_sdf(self, params: Dict, pts: torch.Tensor,
@@ -301,19 +426,61 @@ class SceneRep:
         sharded mapper). The uniforms are then drawn (or given as `u`) for
         the whole batch, [n_total, S], and the block is taken, so a shard
         sees the numbers the unsharded batch would."""
+        u = uniforms(u, "perturb")
         if not (self.perturb and (u is not None or generator is not None)):
             return z_vals
         mids = 0.5 * (z_vals[:, 1:] + z_vals[:, :-1])
         upper = torch.cat([mids, z_vals[:, -1:]], -1)
         lower = torch.cat([z_vals[:, :1], mids], -1)
         n_rays, S = z_vals.shape
+        u = self._block_uniform(u, generator, n_rays, S, rng_block,
+                                z_vals.device)
+        return lower + (upper - lower) * u
+
+    @staticmethod
+    def _block_uniform(u: Optional[torch.Tensor],
+                       generator: Optional[torch.Generator], n_rays: int,
+                       width: int, rng_block, device) -> torch.Tensor:
+        """Per-ray uniforms [n_rays, width]: `u`, else drawn from
+        `generator`. With `rng_block=(n_total, offset)` they are those of
+        the whole batch [n_total, width] (given or drawn), sliced at the
+        block, so a ray shard sees the unsharded batch's numbers."""
         n_total, offset = (n_rays, 0) if rng_block is None else rng_block
         if u is None:
-            u = torch.rand((int(n_total), S), generator=generator,
-                           device=z_vals.device)
+            u = torch.rand((int(n_total), width), generator=generator,
+                           device=device)
         if rng_block is not None:
             u = u[int(offset):int(offset) + n_rays]
-        return lower + (upper - lower) * u
+        return u
+
+    @staticmethod
+    def sample_pdf(bins: torch.Tensor, weights: torch.Tensor,
+                   n_importance: int, u: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+        """Inverse-CDF importance sampling: bins [R, B], weights [R, B] ->
+        samples [R, n_importance], at the uniforms `u` [R, n_importance],
+        or stratified (the bin midpoints of [0, 1]) without them."""
+        weights = weights + 1e-5
+        pdf = weights / weights.sum(-1, keepdim=True)
+        cdf = torch.cumsum(pdf, -1)
+        cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1)
+        R = cdf.shape[0]
+        if u is None:
+            u = _linspace(0.5 / n_importance, 1.0 - 0.5 / n_importance,
+                          n_importance, cdf.device).expand(R, n_importance)
+        u = u.contiguous()
+        idx = torch.searchsorted(cdf.contiguous(), u, right=True)
+        below = torch.clamp(idx - 1, min=0)
+        above = torch.clamp(idx, max=cdf.shape[-1] - 1)
+        cdf_b = torch.gather(cdf, 1, below)
+        cdf_a = torch.gather(cdf, 1, above)
+        last = bins.shape[-1] - 1
+        bins_b = torch.gather(bins, 1, torch.clamp(below, max=last))
+        bins_a = torch.gather(bins, 1, torch.clamp(above, max=last))
+        denom = torch.where(cdf_a - cdf_b < 1e-5, torch.ones_like(cdf_a),
+                            cdf_a - cdf_b)
+        t = (u - cdf_b) / denom
+        return bins_b + t * (bins_a - bins_b)
 
     def render_rays(self, params: Dict, rays_o: torch.Tensor,
                     rays_d: torch.Tensor, target_d: Optional[torch.Tensor],
@@ -324,7 +491,11 @@ class SceneRep:
         """Render a batch of rays [R, 3] with depth-guided samples, or
         without a target depth with n_samples uniform in [near, far]
         (perturbed per bin when `training.perturb` is set and `u` or a
-        generator is given; `rng_block`: see `_perturb`)."""
+        generator is given; `rng_block`: see `_perturb`). With
+        `training.n_importance` > 0 a second pass renders the samples and
+        n_importance more drawn from the first pass's weights (random
+        under the same condition, else stratified), and the first pass's
+        maps come back as rgb0, depth0, ..."""
         n_rays = rays_o.shape[0]
         if target_d is None:
             z_vals = self._perturb(_linspace(
@@ -339,9 +510,33 @@ class SceneRep:
                                    tables).reshape(n_rays, z_vals.shape[1], 4)
         rgb_map, disp_map, acc_map, weights, depth_map, depth_var = \
             self.raw2outputs(raw, z_vals)
-        return {"rgb": rgb_map, "depth": depth_map, "disp_map": disp_map,
-                "acc_map": acc_map, "depth_var": depth_var,
-                "z_vals": z_vals, "raw": raw, "weights": weights}
+        ret = {}
+        if self.n_importance > 0:
+            ret.update(rgb0=rgb_map, disp0=disp_map, acc0=acc_map,
+                       depth0=depth_map, depth_var0=depth_var)
+            z_mid = 0.5 * (z_vals[:, 1:] + z_vals[:, :-1])
+            u_imp = uniforms(u, "importance")
+            if self.perturb and (u_imp is not None or generator is not None):
+                u_imp = self._block_uniform(u_imp, generator, n_rays,
+                                            self.n_importance, rng_block,
+                                            rays_o.device)
+            else:
+                u_imp = None
+            z_samples = self.sample_pdf(z_mid.detach(),
+                                        weights[:, 1:-1].detach(),
+                                        self.n_importance, u_imp)
+            z_vals = torch.sort(torch.cat([z_vals, z_samples], -1),
+                                dim=-1).values
+            pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+            raw = self.query_color_sdf(
+                params, pts.reshape(-1, 3),
+                tables).reshape(n_rays, z_vals.shape[1], 4)
+            rgb_map, disp_map, acc_map, weights, depth_map, depth_var = \
+                self.raw2outputs(raw, z_vals)
+        ret.update({"rgb": rgb_map, "depth": depth_map, "disp_map": disp_map,
+                    "acc_map": acc_map, "depth_var": depth_var,
+                    "z_vals": z_vals, "raw": raw, "weights": weights})
+        return ret
 
     @torch.no_grad()
     def render_image_rays(self, params: Dict, rays_o: torch.Tensor,
@@ -458,6 +653,11 @@ class SceneRep:
         psnr = -10.0 * torch.log10(torch.clamp(rgb_loss, min=1e-12))
         depth_loss = self._psum(((rend["depth"] - t) ** 2) * valid_depth,
                                 group) / n_valid
+        if "rgb0" in rend:   # the importance resampling's first pass
+            rgb_loss = rgb_loss + self._pmean(
+                (rend["rgb0"] - target_rgb) ** 2, group)
+            depth_loss = depth_loss + self._psum(
+                ((rend["depth0"] - t) ** 2) * valid_depth, group) / n_valid
 
         sdf = rend["raw"][..., 3]
         z_vals = rend["z_vals"]
@@ -478,9 +678,10 @@ class SceneRep:
             "psnr": psnr,
         }
 
-    def get_loss_from_ret(self, ret: Dict, rgb=True, sdf=True,
-                          depth=True) -> torch.Tensor:
-        """Weighted total loss."""
+    def get_loss_from_ret(self, ret: Dict, rgb=True, sdf=True, depth=True,
+                          smooth_loss=None) -> torch.Tensor:
+        """Weighted total loss (with `smooth_loss`, its term at
+        training.smooth_weight)."""
         tr = self.config["training"]
         is_co = bool(self.config.get("is_co_sdf", tr.get("is_co_sdf", True)))
         loss = 0.0
@@ -497,7 +698,41 @@ class SceneRep:
                 loss += (mp["w_sdf_fs"] * ret["e_fs_loss"]
                          + mp["w_sdf_center"] * ret["e_center_loss"]
                          + mp["w_sdf_tail"] * ret["e_tail_loss"])
+        if smooth_loss is not None:
+            loss += tr["smooth_weight"] * smooth_loss
         return loss
+
+    def smoothness(self, params: Dict, u=None,
+                   generator: Optional[torch.Generator] = None,
+                   sample_points: int = 32, voxel_size: float = 0.1,
+                   margin: float = 0.05) -> torch.Tensor:
+        """TV smoothness of the geometry planes' features over a random
+        (sample_points - 1)^3 sub-grid of `voxel_size` spacing inside the
+        mapping bound. The grid's offset and its jitter are the uniforms
+        `u` (parts smooth_offset [3] and smooth_jitter [3]), else drawn
+        from `generator` (else from torch's default generator)."""
+        dev = self.bounding_box.device
+        lo = self.bounding_box[:, 0]
+        hi = self.bounding_box[:, 1]
+        grid_size = (sample_points - 1) * voxel_size
+        offset_max = hi - lo - grid_size - 2 * margin
+        u_off, u_jit = uniforms(u, "smooth_offset"), \
+            uniforms(u, "smooth_jitter")
+        if u_off is None:
+            u_off = torch.rand((3,), generator=generator, device=dev)
+        if u_jit is None:
+            u_jit = torch.rand((3,), generator=generator, device=dev)
+        offset = u_off * offset_max + margin
+        n = sample_points - 1
+        r = torch.arange(n, device=dev)
+        idx = torch.stack(torch.meshgrid(r, r, r, indexing="ij"),
+                          dim=-1).float()
+        pts = (idx + u_jit.reshape(1, 1, 1, 3)) * voxel_size + lo + offset
+        feat = self.query_plane_feature_grid(params, pts)
+        tv_x = ((feat[1:] - feat[:-1]) ** 2).sum()
+        tv_y = ((feat[:, 1:] - feat[:, :-1]) ** 2).sum()
+        tv_z = ((feat[:, :, 1:] - feat[:, :, :-1]) ** 2).sum()
+        return (tv_x + tv_y + tv_z) / (sample_points ** 3)
 
 
 def param_leaves(params: Dict) -> list:

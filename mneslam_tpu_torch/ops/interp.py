@@ -1,6 +1,6 @@
-"""Bilinear plane sampling for the tri-plane map (the packed sampler).
+"""Bilinear plane sampling for the tri-plane map.
 
-Port of the default `packed` path of `mneslam_tpu/ops/interp.py`:
+Port of `mneslam_tpu/ops/interp.py`'s samplers:
 coordinates in [-1, 1], align_corners=True (grid corners at pixel centers 0
 and size-1), border clamping. `sample_plane_packed` gathers one row of a
 `pack_corners` table per point (all four bilinear corners at once); its
@@ -12,6 +12,12 @@ The row-sharded mapper's seam (`parallel/mesh.make_row_sharded_pack`)
 samples a packed table directly (`PackedPlane`, `sample_packed_table`):
 the table is the differentiable input and its cotangent is the raw
 scatter, folded later block by block (`fold_corners_rows`).
+
+The other samplers of `MNESLAM_PLANE_SAMPLER` (`models/scene_rep.py`):
+`rows` is `grid_sample_2d` (four corner gathers, plain autograd);
+`merged` samples one `pack_corners` table of the coarse plane upsampled
+onto the fine grid (`upsample_exact`) beside the fine plane through
+`sample_packed_table`.
 """
 
 from __future__ import annotations
@@ -258,3 +264,24 @@ def sample_plane_packed(plane: torch.Tensor,
     """plane [C, H, W], coords [N, 2] in [-1, 1] -> [N, C]; equal to
     `grid_sample_2d(plane, coords)`, with the packed-row backward."""
     return _SamplePlanePacked.apply(plane, coords)
+
+
+def upsample_exact(plane: torch.Tensor, k: int) -> torch.Tensor:
+    """k-times upsampling of plane [C, H, W] onto the nested grid
+    [C, k(H-1)+1, k(W-1)+1] (node j of an axis at coarse coordinate j/k),
+    bilinear along each axis: bilinear sampling of the result equals
+    bilinear sampling of the plane, since a bilinear function on a nested
+    sub-cell is fixed by its corners. The merged sampler's coarse level;
+    plain autograd."""
+    if k == 1:
+        return plane
+    C, H, W = plane.shape
+    w = (torch.arange(k, dtype=plane.dtype, device=plane.device)
+         / k)[None, None, :, None]
+    rows = plane[:, :-1, None, :] * (1 - w) + plane[:, 1:, None, :] * w
+    rows = torch.cat([rows.reshape(C, k * (H - 1), W), plane[:, -1:, :]],
+                     dim=1)                           # [C, k(H-1)+1, W]
+    wc = w.reshape(1, 1, 1, k)
+    cols = rows[:, :, :-1, None] * (1 - wc) + rows[:, :, 1:, None] * wc
+    return torch.cat([cols.reshape(C, rows.shape[1], k * (W - 1)),
+                      rows[:, :, -1:]], dim=2)

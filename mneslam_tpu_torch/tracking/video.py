@@ -153,6 +153,66 @@ def frame_distance_padded(state: VideoState, intrinsics: torch.Tensor, ii,
     return d.cpu().numpy().astype(np.float32)
 
 
+def depth_filter(state: VideoState, intrinsics: torch.Tensor,
+                 inds: torch.Tensor, thresh: torch.Tensor) -> torch.Tensor:
+    """Multi-view depth support count (droid_kernels.cu
+    depth_filter_kernel): each queried frame's inverse depths reprojected
+    into its 6 neighbours (ix-1, ix-2, ix-3, ix+3, ix+4, ix+5); a pixel
+    counts a neighbour that lies in the buffer, lands inside its grid
+    (last row and column excluded) and holds a disparity within `thresh`
+    in depth at one of the 4 bilinear corners. inds [K], thresh [K] ->
+    counts [K, h, w] float32."""
+    B = state.poses.shape[0]
+    ht, wd = state.disps.shape[1:]
+    fx, fy, cx, cy = (intrinsics[i] for i in range(4))
+    inds = torch.as_tensor(inds, device=state.disps.device).long()
+    thresh = torch.as_tensor(thresh, dtype=torch.float32,
+                             device=state.disps.device)
+    offs = torch.tensor([-1, -2, -3, 3, 4, 5], device=inds.device)
+    out = []
+    for k in range(inds.shape[0]):
+        ix, t = inds[k], thresh[k]
+        jx = ix + offs                                        # [6]
+        valid_j = (jx >= 0) & (jx < B)
+        jxc = torch.clamp(jx, 0, B - 1)
+        Gij = lie.mul(state.poses[jxc], lie.inv(state.poses[ix])[None])
+        X0 = projective.iproj(state.disps[ix], intrinsics)    # [h, w, 4]
+        X1 = lie.act4(Gij[:, None, None, :], X0[None])        # [6, h, w, 4]
+        u = fx * (X1[..., 0] / X1[..., 2]) + cx
+        v = fy * (X1[..., 1] / X1[..., 2]) + cy
+        dj = X1[..., 3] / X1[..., 2]
+        u0 = torch.floor(u).long()
+        v0 = torch.floor(v).long()
+        inb = (u0 >= 0) & (v0 >= 0) & (u0 < wd - 1) & (v0 < ht - 1)
+        u0c = torch.clamp(u0, 0, wd - 2)
+        v0c = torch.clamp(v0, 0, ht - 2)
+        dn = state.disps[jxc]                                 # [6, h, w]
+        n_idx = torch.arange(offs.shape[0], device=inds.device)[:, None,
+                                                                 None]
+        support = torch.zeros_like(inb)
+        for dv in (0, 1):
+            for du in (0, 1):
+                dcorner = dn[n_idx, v0c + dv, u0c + du]
+                support |= (1.0 / torch.clamp(dj, min=1e-8)
+                            - 1.0 / torch.clamp(dcorner, min=1e-8)
+                            ).abs() < t
+        ok = support & inb & valid_j[:, None, None]
+        out.append(ok.float().sum(0))
+    return torch.stack(out)
+
+
+def upsample_disps(state: VideoState, inds: torch.Tensor,
+                   upmask: torch.Tensor) -> torch.Tensor:
+    """Convex upsampling of the 1/8-resolution disparities of frames
+    `inds` (depth_video.py:274-276): upmask [k, 576, h, w] ->
+    [k, 8h, 8w]."""
+    from ..models.droid_net import cvx_upsample
+
+    d = state.disps[torch.as_tensor(inds, device=state.disps.device)
+                    .long()][..., None]                      # [k, h, w, 1]
+    return cvx_upsample(d, upmask)[..., 0]
+
+
 def get_poses_c2w(state: VideoState, n: int,
                   pose_compensate: Optional[torch.Tensor] = None,
                   first_gt: Optional[torch.Tensor] = None) -> torch.Tensor:

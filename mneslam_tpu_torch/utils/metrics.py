@@ -1,7 +1,9 @@
 """Per-stage wall-clock timers and a JSONL metric log.
 
 The port's own copy of `StageTimers` from `mneslam_tpu/utils/metrics.py`,
-without `report()` and with `close()`.
+without `report()` and with `close()`, and of its trace hook
+`maybe_profile` (a torch.profiler trace). As in the JAX package, nothing
+on the main path calls the hook.
 """
 
 from __future__ import annotations
@@ -59,3 +61,24 @@ class StageTimers:
         if self._fh is not None:
             self._fh.close()
             self._fh = None
+
+
+@contextmanager
+def maybe_profile(tag: str):
+    """A torch.profiler trace of the block (CPU activity, and CUDA
+    activity where a GPU is present) written to $MNESLAM_TRACE_DIR/<tag>
+    when MNESLAM_TRACE_DIR is set; otherwise nothing."""
+    trace_dir = os.environ.get("MNESLAM_TRACE_DIR")
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=
+                 tensorboard_trace_handler(os.path.join(trace_dir, tag))):
+        yield

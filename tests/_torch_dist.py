@@ -131,7 +131,10 @@ def _load_call(st, call):
     st.db.count = int(call["count"])
     st.kf_poses.copy_(torch.tensor(call["kf_poses"]))
     frame = {k: torch.tensor(v) for k, v in call["frame"].items()}
-    draws = [tuple(torch.tensor(a) for a in d) for d in call["draws"]]
+    # u may be a dict of uniform parts (`models.scene_rep.uniforms`)
+    draws = [tuple({k: torch.tensor(v) for k, v in a.items()}
+                   if isinstance(a, dict) else torch.tensor(a) for a in d)
+             for d in call["draws"]]
     return frame, torch.tensor(call["pose"]), draws
 
 

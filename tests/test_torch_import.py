@@ -38,7 +38,8 @@ def test_every_module_imports_without_jax():
               "agents.netvlad", "agents.loop_detector", "agents.fusion",
               "agents.runner", "cli", "data.image_io", "data.datasets",
               "tools.validate_dataset", "tools.eval_ate",
-              "tools.import_weights", "parallel.mesh", "parallel.fleet"):
+              "tools.import_weights", "parallel.mesh", "parallel.fleet",
+              "ops.hashgrid", "ops.encodings"):
         assert f"mneslam_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"

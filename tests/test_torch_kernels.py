@@ -656,6 +656,47 @@ def test_scatter_kernel_bf16_at_the_bf16_render_shapes(cuda):
     assert bool(((got.float() - ref.float()).abs() <= tol).all())
 
 
+def _room0_tables():
+    """(name, n_rows, width) of kernel 1's tables on the options of
+    configs/Replica/room0.yaml's widths that replica.yaml leaves off:
+    the colour planes (c_planes_res 0.08 / 0.02) per level and
+    orientation, [H*W, 4C], and the merged sampler's two-level table of
+    each geometry orientation, [Hf*Wf, 8C]."""
+    from mneslam_tpu_torch.config import make_config
+    from mneslam_tpu_torch.configs import ROOM0
+    from mneslam_tpu_torch.models.scene_rep import SceneRep
+
+    cfg = make_config({**ROOM0, "grid": {"oneGrid": False}})
+    scene = SceneRep(cfg, "cpu")
+    out = []
+    for lvl, shapes in enumerate(scene.c_plane_shapes):
+        for name, (C, H, W) in shapes.items():
+            out.append((f"c_planes_{name}{lvl}", H * W, 4 * C))
+    for name, (C, H, W) in scene.plane_shapes[1].items():
+        out.append((f"merged_{name}", H * W, 8 * C))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_kernel_at_the_colour_plane_and_merged_tables(cuda, dtype):
+    """Kernel 1 at the colour planes' tables and the merged sampler's
+    [8C]-wide tables at room0 widths, with one mapping pass's 2148 rays x
+    43 samples = 92364 updates, against its plain version (the scatter's
+    tolerance, plus one bf16 ulp on bf16 values)."""
+    for name, n_rows, width in _room0_tables():
+        idx, vals = _inputs(n_rows, 92_364, width, dtype, torch.int64, cuda)
+        got = scatter_add_rows(idx, vals, n_rows)
+        ref = scatter_add_rows_plain(idx, vals, n_rows)
+        mag = scatter_add_rows_plain(idx, vals.float().abs(), n_rows)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (n_rows, width), name
+        tol = 5e-5 * mag + 1e-6
+        if dtype == torch.bfloat16:
+            tol = tol + 2.0 ** -7 * ref.float().abs()
+        assert bool(((got.float() - ref.float()).abs() <= tol).all()), name
+        assert not got[n_rows - 3:].float().any(), name
+
+
 def _bf16_route_checks(got, idx, vals, n_rows):
     """The bf16 route's result against the plain version (the scatter's
     tolerance plus one bf16 ulp), its untouched rows +0.0 bit for bit, and

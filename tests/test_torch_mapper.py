@@ -275,7 +275,17 @@ def test_filter_depth_samples_only_valid_pixels():
 
 
 def test_smoothness_loss_is_not_ported():
+    """The smoothness loss is ported now (held against the JAX mapper in
+    tests/test_torch_scene_options_mapper.py): a mapper with
+    smooth_weight > 0 builds, and its step's loss holds the term."""
     cfg = make_config(dict(OVERRIDES, training=dict(
-        OVERRIDES["training"], smooth_weight=0.1)))
-    with pytest.raises(ValueError):
-        Mapper(cfg, SceneRep(cfg, "cpu"), num_kf=2, rays_per_kf=8)
+        OVERRIDES["training"], smooth_weight=0.1, smooth_pts=6)))
+    m = Mapper(cfg, SceneRep(cfg, "cpu"), num_kf=2, rays_per_kf=8)
+    (o, d, rgb, td), = _batches(64, 1)
+    batch = [torch.tensor(a) for a in (o, d, rgb, td)]
+    state = m.init_state(torch.Generator().manual_seed(0))
+    params = state.params
+    u = torch.rand((64, 17), generator=torch.Generator().manual_seed(1))
+    on, ret = m._loss_fn(params, *batch, u=u)
+    off = m.scene.get_loss_from_ret(ret)
+    assert float(on.detach()) > float(off.detach())

@@ -8,8 +8,8 @@ side runs in this process on the conftest's virtual CPU devices. The
 random draws are made by `jax.random` as the JAX optimize makes them and
 handed to the port (`Mapper.optimize(draws=...)`). Tolerances as
 tests/test_parallel.py:133: loss rtol 1e-4, parameters atol 3e-5.
-`grid.oneGrid: false` is not ported (the port's SceneRep raises), so the
-colour planes' pass through the seam is not held here.
+The colour planes' pass through the seam (`grid.oneGrid: false`) is held
+in tests/test_torch_scene_options_mapper.py.
 """
 
 import jax

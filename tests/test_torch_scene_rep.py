@@ -177,13 +177,17 @@ def test_get_loss_from_ret_matches_jax(is_co):
 
 
 def test_unported_options_raise():
-    cfg = make_config({"grid": {"oneGrid": False}})
-    with pytest.raises(ValueError):
-        SceneRep(cfg, "cpu")
-    with pytest.raises(ValueError):
-        SceneRep(make_config({"training": {"n_importance": 8}}), "cpu")
+    """Every option of the JAX package is ported now (colour planes and
+    importance resampling: tests/test_torch_scene_options.py): those build;
+    what the JAX package does not know still raises."""
+    scene = SceneRep(make_config({"grid": {"oneGrid": False}}), "cpu")
+    assert "c_planes" in scene.init_params(torch.Generator().manual_seed(0))
+    assert SceneRep(make_config({"training": {"n_importance": 8}}),
+                    "cpu").n_importance == 8
     # bfloat16 is ported (tests/test_torch_render_bf16.py); other dtypes
     # still raise
     with pytest.raises(ValueError):
         SceneRep(make_config({"training": {"render_dtype": "float16"}}),
                  "cpu")
+    with pytest.raises(ValueError, match="unknown encoding"):
+        SceneRep(make_config({"pos": {"enc": "HashGrid"}}), "cpu")
