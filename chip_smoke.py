@@ -233,8 +233,37 @@ Phases, each of which must pass (any failure exits non-zero):
      with the DROID update's GRU running (key poses within 5 cm), then
      `depth_filter`, `upsample_disps` and `keyframe_selection_overlap` on
      its state GPU vs CPU, and `maybe_profile` writing a trace. The
-     phase's time is printed beside its budget of 90 s.
-Every phase prints its seconds. Phase 13b maps 18 TUM frames (24 before
+     phase's time is printed beside its budget of 90 s;
+ 16. the product tools (`mneslam_tpu_torch/tools/`), each at its own
+     widths, cut in depth only, the kernels' counts set to 0 just before
+     each tool and read just after: 16a. `eval_synthetic.run` (340 x 600,
+     c_dim 32, 2048 + 100 rays, 0.02 m planes and mesh) on every 10th of
+     its keyframe ids, its three held-out views, the first frame's 500
+     iterations cut to 100, in fp32 and then `--fast --bf16` (kernel 1
+     exactly 6 launches an iteration, all on bf16 values under bf16);
+     16b. `eval_slam_synthetic.main` with the oracle at 320 x 640 on 11
+     frames, the fewest that map two keyframes past the warmup of 8 (APE
+     under 5 cm, kernel 2 once a lookup, kernel 1 6 an iteration); 16c.
+     `eval_multiagent_synthetic.main --fast` at 240 x 320 on the fewest
+     frames at which agent 1 accepts a closure (its keyframe errors
+     printed, kernel 2 once a lookup); 16d. `flow_loop_detect.main` on 2 x
+     2 box-room PNGs (written by `image_io.write_png`) on the card (bf16
+     nets) and on the CPU (fp32): flows within 2e-2 relative, exactly 4
+     kernel-2 launches; 16e. `create_virtual_cameras.main` on 16b's key
+     poses, GPU vs CPU within 1e-6; 16f. `python -m
+     mneslam_tpu_torch.tools.trace_ops mapping` and `frontend`, each in a
+     child process: each table lists kernel 1's or kernel 2's symbol with
+     a non-zero time (written beside the other profile tables); 16g.
+     `vis_cameras` and `visualizer` where matplotlib is installed (the
+     script says it skips them otherwise). Any non-finite number in a
+     report or an empty mesh fails the phase. Its time is printed beside
+     its budget of 75 s.
+Every phase prints its seconds, and the script its whole time beside
+816.6 s and 898.0 s, two runs before phase 16 was added. The synthetic
+box room renders each frame once and keeps it (`data/synthetic.py`):
+phase 8 read each 680 x 1200 frame four or five times before (tracking,
+mapping, the pose table, the filler, the observed space), and took 150.2
+s after it against 243.6 / 266.0 s (PERF.md section 6). Phase 13b maps 18 TUM frames (24 before
 phase 15) and 14d's fleet first_iters 20 and iters 20 (50 and 50 before):
 the depth that pays for phase 15.
 Prints the kernels' JSON line, then as the last line
@@ -1447,42 +1476,6 @@ ORACLE_DT = (0.08, -0.06, 0.05)
 ORACLE_LR = 0.01
 
 
-class FrameCache:
-    """A dataset whose frames are rendered once and kept: the synthetic
-    box room ray-casts each 680 x 1200 frame on the host, and the agents
-    read a frame up to five times (tracking, mapping, the filler, the
-    pose table and the observed space at terminate)."""
-
-    def __init__(self, ds):
-        self.ds, self.items = ds, {}
-        self.num_rays_to_save = ds.num_rays_to_save
-
-    def __len__(self):
-        return len(self.ds)
-
-    def __getitem__(self, i):
-        if i not in self.items:
-            self.items[i] = self.ds[i]
-        return dict(self.items[i])
-
-
-class Slice:
-    """Trajectory segment view of a dataset (start_index / end_index), as
-    tests/test_multiagent.py:405-415: frame ids restart at 0."""
-
-    def __init__(self, ds, lo, hi):
-        self.ds, self.lo, self.n = ds, lo, hi - lo
-        self.num_rays_to_save = ds.num_rays_to_save
-
-    def __len__(self):
-        return self.n
-
-    def __getitem__(self, i):
-        item = self.ds[self.lo + i]
-        item["frame_id"] = i
-        return item
-
-
 def collab_parity():
     """12a: the multi-agent layer's functions on phase 3's tiny config, GPU
     against CPU on the same converted inputs -> dict of differences and
@@ -1670,6 +1663,7 @@ def multiagent_slam():
     from mneslam_tpu_torch.configs import ROOM0
     from mneslam_tpu_torch.data.synthetic import SyntheticBoxDataset
     from mneslam_tpu_torch.slam import MNESLAM
+    from mneslam_tpu_torch.tools.eval_multiagent_synthetic import Slice
 
     def config():
         cfg = make_config(ROOM0)
@@ -1684,8 +1678,8 @@ def multiagent_slam():
         return cfg
 
     cfgs = [config() for _ in MA_SEGMENTS]
-    frames = FrameCache(SyntheticBoxDataset(cfgs[0], num_frames=MA_FRAMES,
-                                            half=BOX_HALF))
+    frames = SyntheticBoxDataset(cfgs[0], num_frames=MA_FRAMES,
+                                 half=BOX_HALF)
     agents = []
     for r, (cfg, (lo, hi)) in enumerate(zip(cfgs, MA_SEGMENTS)):
         seg = Slice(frames, lo, hi)
@@ -2969,6 +2963,7 @@ def fleet_check(card) -> tuple:
     from mneslam_tpu_torch.data.synthetic import SyntheticBoxDataset
     from mneslam_tpu_torch.parallel.fleet import MeshAgentFleet
     from mneslam_tpu_torch.slam import MNESLAM
+    from mneslam_tpu_torch.tools.eval_multiagent_synthetic import Slice
 
     def config(exp):
         cfg = make_config(copy.deepcopy(ROOM0))
@@ -2982,9 +2977,8 @@ def fleet_check(card) -> tuple:
         cfg["distillation"]["use_bound_overlap"] = False
         return cfg
 
-    frames = FrameCache(SyntheticBoxDataset(config("x"),
-                                            num_frames=MA_FRAMES,
-                                            half=BOX_HALF))
+    frames = SyntheticBoxDataset(config("x"), num_frames=MA_FRAMES,
+                                 half=BOX_HALF)
     segs = [(lo, lo + FLEET_FRAMES) for lo, _ in MA_SEGMENTS]
 
     def agents(exp):
@@ -3109,6 +3103,7 @@ def install_fleet_setup(setup: dict, built: list, timing: dict):
     from mneslam_tpu_torch.data import datasets
     from mneslam_tpu_torch.data.synthetic import SyntheticBoxDataset
     from mneslam_tpu_torch.mapping.mapper import Mapper
+    from mneslam_tpu_torch.tools.eval_multiagent_synthetic import Slice
     from mneslam_tpu_torch.tools.validate_dataset import OracleMNESLAM
 
     segs = setup["segments"]
@@ -3117,8 +3112,8 @@ def install_fleet_setup(setup: dict, built: list, timing: dict):
     lo, hi = segs[rank // per_slice]
 
     def get_dataset(cfg):
-        return Slice(FrameCache(SyntheticBoxDataset(
-            cfg, num_frames=setup["frames"], half=setup["half"])), lo, hi)
+        return Slice(SyntheticBoxDataset(
+            cfg, num_frames=setup["frames"], half=setup["half"]), lo, hi)
 
     base = (OracleMNESLAM if setup["oracle"] and rank % per_slice == 0
             else slam_mod.MNESLAM)
@@ -3317,13 +3312,13 @@ def fleet_slam_check() -> dict:
 
     from mneslam_tpu_torch.data.synthetic import SyntheticBoxDataset
     from mneslam_tpu_torch.parallel.fleet import MeshAgentFleet
+    from mneslam_tpu_torch.tools.eval_multiagent_synthetic import Slice
     from mneslam_tpu_torch.tools.validate_dataset import OracleMNESLAM
 
     cfg = tiny_slam_config(os.path.join(RUN_OUT, "fleet_slam"),
                            exp_name="fleet_slam")
     cfg["distillation"]["use_bound_overlap"] = False
-    frames = FrameCache(SyntheticBoxDataset(cfg,
-                                            num_frames=FLEET_SLAM_FRAMES))
+    frames = SyntheticBoxDataset(cfg, num_frames=FLEET_SLAM_FRAMES)
     agents = [OracleMNESLAM(copy.deepcopy(cfg), Slice(frames, lo, hi),
                             rank=r, world_size=len(FLEET_SLAM_SEGMENTS),
                             device="cuda")
@@ -3440,6 +3435,7 @@ def one_slice_fleet(cfg, frames, segments) -> dict:
     from mneslam_tpu_torch.models.scene_rep import checkpoint_key, param_items
     from mneslam_tpu_torch.parallel.fleet import MeshAgentFleet
     from mneslam_tpu_torch.slam import MNESLAM
+    from mneslam_tpu_torch.tools.eval_multiagent_synthetic import Slice
 
     agents = [MNESLAM(copy.deepcopy(cfg), Slice(frames, lo, hi), rank=r,
                       world_size=len(segments), device="cuda")
@@ -3489,8 +3485,7 @@ def composed_fleet_refs(frames) -> dict:
         "ref": one_slice_fleet(cfg, frames, segs),
         "again": one_slice_fleet(cfg, frames, segs)}}
     lcfg = loop_config(os.path.join(out_dir, "loop_ref"))
-    lframes = FrameCache(SyntheticBoxDataset(lcfg,
-                                             num_frames=FLEET_LOOP_FRAMES))
+    lframes = SyntheticBoxDataset(lcfg, num_frames=FLEET_LOOP_FRAMES)
     lpath = os.path.join(out_dir, "loop.yaml")
     with open(lpath, "w") as f:
         yaml.safe_dump(loop_config(out_dir), f)
@@ -4627,6 +4622,318 @@ def options_phase(card, fp32_iter_ms) -> dict:
             "encodings": enc, "gru": gru, "slam": slam}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the product tools (mneslam_tpu_torch/tools/)
+# ---------------------------------------------------------------------------
+
+# phase 16's printed budget (not a failure when over)
+TOOLS_BUDGET_S = 75.0
+# 16a: eval_synthetic's keyframe ids (2, 4, ..., 118) taken every 10th (2,
+# 22, ..., 102: each held-out view 31 / 61 / 91 lies between two), and its
+# first frame's 500 iterations cut to 100
+TOOLS_KF_STRIDE = 10
+TOOLS_FIRST_ITERS = 100
+# 16b: the fewest frames that map two keyframes past the warmup of 8 (the
+# mapper stays one keyframe behind the tracker)
+TOOLS_SLAM_FRAMES = 11
+TOOLS_SLAM_HW = "320,640"
+# 16c: the fewest frames at which agent 1 accepts a closure: agent 1 runs
+# frames 0 .. 2 (F // 3) - 1 and its tracker maps nothing before its
+# warmup of 8 (12 frames: 3 of 4 closures accepted on the H100)
+TOOLS_MA_FRAMES = 12
+TOOLS_MA_HW = "240,320"
+# 16d: box-room frames at flow_loop_detect's default 240 x 320, two a list;
+# the GPU runs the nets in bf16, the CPU in fp32: on the CPU, bf16 weights
+# moved the tool's flows by at most 4.1e-3 relative (random and fake
+# droid.pth weights, 64 x 96): 5 x that
+TOOLS_FLOW_IDS = ((0, 1), (4, 6))
+FLOW_BF16_RTOL = 2e-2
+# 16e: the virtual cameras, GPU against CPU (float32 exp and products)
+CAMS_ATOL = 1e-6
+# 16f: each target's kernel, by the symbol of its CUDA kernel
+TRACE_KERNELS = {"mapping": "scatter_add_rows", "frontend": "corr_window"}
+TRACE_TIMEOUT_S = 300
+
+
+def finite_report(report, path="") -> list:
+    """The keys of `report` (nested) whose number is not finite."""
+    if isinstance(report, dict):
+        return [k for key, v in report.items()
+                for k in finite_report(v, f"{path}.{key}".lstrip("."))]
+    if isinstance(report, (list, tuple)):
+        return [k for i, v in enumerate(report)
+                for k in finite_report(v, f"{path}[{i}]")]
+    if isinstance(report, float) and not math.isfinite(report):
+        return [path]
+    return []
+
+
+def tool_run(name, fn, *args):
+    """fn(*args) with the kernels' counts set to 0 just before and read
+    just after -> (its result, launches, seconds)."""
+    import torch
+
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    log(f"16 {name}: {seconds:.2f} s, launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    return out, launches, seconds
+
+
+def eval_synthetic_cut(fast: bool, bf16: bool) -> dict:
+    """16a: `eval_synthetic.run` at the tool's widths, a strided subset of
+    its keyframe ids and its three held-out views, the first frame's
+    iterations cut."""
+    from mneslam_tpu_torch.data.synthetic import SyntheticBoxDataset
+    from mneslam_tpu_torch.tools import eval_synthetic as es
+
+    cfg = es.config(fast, bf16)
+    cfg["mapping"]["first_iters"] = TOOLS_FIRST_ITERS
+    ds = SyntheticBoxDataset(cfg, num_frames=es.NUM_FRAMES, half=es.HALF)
+    ids = es.KEYFRAME_IDS[::TOOLS_KF_STRIDE]
+    rep = es.run(cfg, ds, ids, es.HELD_OUT, es.iters_for(fast), "cuda",
+                 fast=fast, bf16=bf16)
+    rep["iterations"] = TOOLS_FIRST_ITERS + len(ids) * es.iters_for(fast)
+    return rep
+
+
+def flow_check(out_dir) -> dict:
+    """16d: `flow_loop_detect.main` on 2 x 2 box-room frames written as
+    PNGs, on the card (counted) and on the CPU."""
+    import numpy as np
+
+    from mneslam_tpu_torch.config import make_config
+    from mneslam_tpu_torch.data.image_io import write_png
+    from mneslam_tpu_torch.data.synthetic import SyntheticBoxDataset
+    from mneslam_tpu_torch.tools import flow_loop_detect
+
+    os.makedirs(out_dir, exist_ok=True)
+    H, W = 240, 320
+    ds = SyntheticBoxDataset(make_config({"cam": {
+        "H": H, "W": W, "fx": W / 2, "fy": W / 2, "cx": W / 2 - 0.5,
+        "cy": H / 2 - 0.5}}), num_frames=8)
+    lists = []
+    for tag, ids in zip("ab", TOOLS_FLOW_IDS):
+        paths = []
+        for i in ids:
+            paths.append(os.path.join(out_dir, f"frame{i}.png"))
+            write_png(paths[-1], np.round(ds[i]["rgb"][..., ::-1] * 255.0)
+                      .astype(np.uint8))
+        lists.append(os.path.join(out_dir, f"{tag}.txt"))
+        with open(lists[-1], "w") as f:
+            f.write("\n".join(paths) + "\n")
+    argv = ["--list_a", lists[0], "--list_b", lists[1]]
+    gpu, launches, seconds = tool_run(
+        "flow_loop_detect (cuda)", flow_loop_detect.main,
+        argv + ["--out", os.path.join(out_dir, "flows_gpu.csv")])
+    cpu = flow_loop_detect.main(
+        argv + ["--out", os.path.join(out_dir, "flows_cpu.csv"), "--device",
+                "cpu"])
+    g = np.asarray([f for _, _, f in gpu["pairs"]])
+    c = np.asarray([f for _, _, f in cpu["pairs"]])
+    return {"flows_gpu": g.tolist(), "flows_cpu": c.tolist(),
+            "max_rel_diff": float(np.max(np.abs(g - c) / np.abs(c))),
+            "launches": launches, "seconds": seconds}
+
+
+def trace_children() -> dict:
+    """16f: `python -m mneslam_tpu_torch.tools.trace_ops TARGET` for each
+    target, the children side by side -> by target its rows for the
+    target's kernel. Raises SystemExit when a child fails."""
+    import re
+
+    t0 = time.perf_counter()
+    procs = {t: subprocess.Popen(
+        [sys.executable, "-m", "mneslam_tpu_torch.tools.trace_ops", t,
+         "300"], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for t in TRACE_KERNELS}
+    out = {}
+    for target, p in procs.items():
+        try:
+            stdout, stderr = p.communicate(timeout=TRACE_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for q in procs.values():
+                q.kill()
+            raise SystemExit(f"16f trace_ops {target}: over "
+                             f"{TRACE_TIMEOUT_S} s")
+        path = os.path.join(OUT, f"trace_ops_{target}.txt")
+        with open(path, "w") as f:
+            f.write(stdout + stderr)
+        if p.returncode:
+            raise SystemExit(f"16f trace_ops {target}: exit {p.returncode}; "
+                             f"{stderr[-2000:]}")
+        rows = [(float(m.group(1)), float(m.group(2)), m.group(3))
+                for m in (re.match(r"\s*([\d.]+) ms\s+([\d.]+)%\s+"
+                                   r"(?:kernel|cpu op)\s+(.*)", line)
+                          for line in stdout.splitlines()) if m]
+        total = re.search(r"(?:device|host) total self time: ([\d.]+) "
+                          r"ms/rep", stdout)
+        out[target] = {
+            "seconds": time.perf_counter() - t0, "rows": len(rows),
+            "device_ms_per_rep": float(total.group(1)) if total else None,
+            "kernel_rows": [r for r in rows if TRACE_KERNELS[target] in r[2]],
+            "table": path}
+    return out
+
+
+def tools_phase(card) -> dict:
+    """Phase 16 (16a-16f): the product tools on the card, each with the
+    kernels' counts set to 0 just before and read just after. Raises
+    SystemExit on a failed check."""
+    import importlib.util
+
+    import numpy as np
+
+    from mneslam_tpu_torch.tools import (create_virtual_cameras,
+                                         eval_multiagent_synthetic,
+                                         eval_slam_synthetic)
+
+    t16 = time.perf_counter()
+    steps, launches, bad = {}, {}, []
+
+    # 16a. mapping-only quality: fp32, then the fast profile in bf16
+    synth = {}
+    for tag, fast, bf16 in (("fp32", False, False),
+                            ("fast_bf16", True, True)):
+        rep, n, _ = tool_run(f"16a eval_synthetic {tag}", eval_synthetic_cut,
+                             fast, bf16)
+        synth[tag], launches[f"eval_synthetic_{tag}"] = rep, n
+        log(f"16a eval_synthetic {tag} (340 x 600, 2048 + 100 rays, "
+            f"keyframes {rep['keyframes']} of 60 (every "
+            f"{TOOLS_KF_STRIDE}th id), first frame {TOOLS_FIRST_ITERS} "
+            f"iterations of 500): {json.dumps(rep)} on {card}")
+        want = SCATTERS_PER_ITER * rep["iterations"]
+        if finite_report(rep) or rep["mesh_verts"] <= 0 \
+                or n["scatter_add_rows"] != want \
+                or n["scatter_add_rows_bf16"] != (want if bf16 else 0):
+            bad.append(f"16a {tag}: finite {finite_report(rep)}, launches "
+                       f"{n['scatter_add_rows']} / bf16 "
+                       f"{n['scatter_add_rows_bf16']} (want {want})")
+    steps["16a"] = time.perf_counter() - t16
+
+    # 16b. the SLAM tool with the oracle update
+    slam_out = os.path.join(RUN_OUT, "tools_eval_slam")
+    with _Recorded(0) as rec:
+        slam_rep, n, _ = tool_run(
+            "16b eval_slam_synthetic", eval_slam_synthetic.main,
+            ["--frames", str(TOOLS_SLAM_FRAMES), "--hw", TOOLS_SLAM_HW,
+             "--out", slam_out])
+    (slam,) = rec.built
+    launches["eval_slam_synthetic"] = n
+    iters = int(slam.config["mapping"]["first_iters"]) + (
+        slam.map_counter - 1) * int(slam.config["mapping"]["iters"])
+    log(f"16b eval_slam_synthetic --frames {TOOLS_SLAM_FRAMES} --hw "
+        f"{TOOLS_SLAM_HW} (oracle): "
+        f"{json.dumps({k: v for k, v in slam_rep.items() if k != 'stage_timers'})}"
+        f"; APE limit {ATE_TOL_M} m; lookups {lookups(slam)}, mapping "
+        f"iterations {iters}; stage s "
+        f"{json.dumps({k: v['total_s'] for k, v in slam_rep['stage_timers'].items() if '/' not in k})}")
+    warmup = int(slam.config["tracking"]["warmup"])
+    if finite_report(slam_rep) or not slam_rep["ate_rmse_m"] < ATE_TOL_M \
+            or slam_rep["mapped"] < warmup + 2 or not slam_rep["mesh_verts"] \
+            or n["corr_window"] != lookups(slam) \
+            or n["scatter_add_rows"] != SCATTERS_PER_ITER * iters:
+        bad.append("16b eval_slam_synthetic")
+    steps["16b"] = time.perf_counter() - t16 - sum(steps.values())
+
+    # 16c. two agents, the closure's keyframe errors
+    with _Recorded(0) as rec:
+        ma_rep, n, _ = tool_run(
+            "16c eval_multiagent_synthetic",
+            eval_multiagent_synthetic.main,
+            ["--frames", str(TOOLS_MA_FRAMES), "--hw", TOOLS_MA_HW,
+             "--fast", "--out", os.path.join(RUN_OUT, "tools_eval_ma")])
+    launches["eval_multiagent_synthetic"] = n
+    ma_lookups = sum(lookups(a) for a in rec.built)
+    log(f"16c eval_multiagent_synthetic --frames {TOOLS_MA_FRAMES} --hw "
+        f"{TOOLS_MA_HW} --fast: {json.dumps(ma_rep)}; lookups {ma_lookups}; "
+        f"alignments {[a.collab.alignments for a in rec.built]}, closures "
+        f"accepted {[a.collab.closures_accepted for a in rec.built]}, "
+        f"rejected {[a.collab.closures_rejected for a in rec.built]}")
+    if finite_report(ma_rep) or "kf_err_after_closure_m" not in ma_rep \
+            or n["corr_window"] != ma_lookups or not n["scatter_add_rows"]:
+        bad.append("16c eval_multiagent_synthetic")
+    steps["16c"] = time.perf_counter() - t16 - sum(steps.values())
+
+    # 16d. flows between two image lists
+    flow = flow_check(os.path.join(RUN_OUT, "tools_flow"))
+    launches["flow_loop_detect"] = flow["launches"]
+    n_pairs = len(flow["flows_gpu"])
+    log(f"16d flow_loop_detect 2 x 2 box-room PNGs at 240 x 320, random "
+        f"weights (bf16 on the card, fp32 on the CPU): flows GPU "
+        f"{flow['flows_gpu']} CPU {flow['flows_cpu']}, max rel diff "
+        f"{flow['max_rel_diff']:.3e} (limit {FLOW_BF16_RTOL:g}); kernel-2 "
+        f"launches {flow['launches']['corr_window']} for {n_pairs} pairs")
+    if not (flow["max_rel_diff"] <= FLOW_BF16_RTOL and n_pairs == 4
+            and flow["launches"]["corr_window"] == n_pairs):
+        bad.append("16d flow_loop_detect")
+    steps["16d"] = time.perf_counter() - t16 - sum(steps.values())
+
+    # 16e. virtual cameras from 16b's key poses
+    poses = os.path.join(slam.out_dir, "key_est_poses.npy")
+    cams_out = os.path.join(RUN_OUT, "tools_cams")
+    gpu_cams, n, _ = tool_run(
+        "16e create_virtual_cameras (cuda)", create_virtual_cameras.main,
+        ["--poses", poses, "--out", cams_out + "_gpu.npy"])
+    launches["create_virtual_cameras"] = n
+    cpu_cams = create_virtual_cameras.main(
+        ["--poses", poses, "--out", cams_out + "_cpu.npy", "--device",
+         "cpu"])
+    cams_err = float(np.abs(gpu_cams - cpu_cams).max())
+    log(f"16e create_virtual_cameras on 16b's {len(np.load(poses))} key "
+        f"poses: {len(gpu_cams)} cameras, GPU vs CPU max abs diff "
+        f"{cams_err:.3e} (limit {CAMS_ATOL:g})")
+    if not cams_err <= CAMS_ATOL:
+        bad.append("16e create_virtual_cameras")
+    steps["16e"] = time.perf_counter() - t16 - sum(steps.values())
+
+    # 16f. the profiler tool, each target in a child process (the two side
+    #     by side: their tables' kernel times are CUPTI's per kernel)
+    trace = trace_children()
+    for t, tr in trace.items():
+        log(f"16f trace_ops {t} (child process, {tr['seconds']:.1f} s): "
+            f"{tr['rows']} kernel rows, device {tr['device_ms_per_rep']} ms "
+            f"per rep; {TRACE_KERNELS[t]} rows (ms per rep, %, symbol) "
+            f"{json.dumps(tr['kernel_rows'])}; table in {tr['table']}")
+        if not any(ms > 0 for ms, _, _ in tr["kernel_rows"]):
+            bad.append(f"16f trace_ops {t}")
+    steps["16f"] = time.perf_counter() - t16 - sum(steps.values())
+
+    # 16g. the host-only tools need matplotlib
+    if importlib.util.find_spec("matplotlib") is None:
+        log("16g vis_cameras and visualizer skipped: matplotlib is not "
+            "installed on this machine (host-only tools, tested on the CPU "
+            "by tests/test_torch_host_tools.py)")
+    else:
+        from mneslam_tpu_torch.tools import vis_cameras, visualizer
+
+        vis_cameras.main(["--poses", poses, "--out",
+                          os.path.join(OUT, "tools_cameras.png")])
+        lines = visualizer.main(["--run", slam.out_dir])
+        log(f"16g vis_cameras and visualizer on 16b's run: {lines}")
+
+    if bad:
+        raise SystemExit(f"phase 16 (the tools) failed: {bad}")
+    t16 = time.perf_counter() - t16
+    log(f"phase 16 {t16:.1f} s of its budget of {TOOLS_BUDGET_S:.0f} s"
+        + (": OVER BUDGET, cut its frames or iterations"
+           if t16 > TOOLS_BUDGET_S else "")
+        + f"; s by step "
+        f"{json.dumps({k: round(v, 1) for k, v in steps.items()})}")
+    by_tool = {k1: {k: v[k] for k in ("scatter_add_rows", "corr_window")}
+               for k1, v in launches.items()}
+    return {"seconds": t16, "synthetic": synth, "slam": slam_rep,
+            "multiagent": ma_rep, "flow": flow, "cams_err": cams_err,
+            "trace": trace, "launches": by_tool,
+            "scatter_add_rows": sum(v["scatter_add_rows"]
+                                    for v in by_tool.values()),
+            "corr_window": sum(v["corr_window"] for v in by_tool.values())}
+
+
 def main():
     import numpy as np
     import torch
@@ -4940,8 +5247,9 @@ def main():
                  for k, v in global_by.items()}
     fill_stage_s = stages["fill_trajectory"]["total_s"]
     # the terminate stage above streams the frames from the synthetic
-    # dataset, which ray-casts each 680 x 1200 frame in numpy on the host:
-    # time that rendering and the filler alone, on frames rendered first
+    # dataset (each 680 x 1200 frame ray-cast on the host once, during
+    # tracking, and kept): time reading and resizing them and the filler
+    # alone, on frames resized first
     t0 = time.perf_counter()
     frames = [(float(i), slam_s._to_tracking_res(slam_s.dataset[i]["rgb"]))
               for i in range(SLAM_FRAMES)]
@@ -4953,8 +5261,8 @@ def main():
     fill_s = time.perf_counter() - t0
     del frames
     log(f"trajectory filler: {fill_stage_s:.2f} s in terminate's stage, of "
-        f"which rendering the {SLAM_FRAMES} synthetic frames on the host and "
-        f"resizing them takes {render_s:.2f} s when timed alone; the filler "
+        f"which reading the {SLAM_FRAMES} kept synthetic frames and resizing "
+        f"them takes {render_s:.2f} s when timed alone; the filler "
         f"alone on frames rendered first {fill_s:.2f} s")
     log(f"SLAM slice times (host clock, each call between two "
         f"synchronisations): {pre_ms:.1f} ms per tracked frame before the "
@@ -5120,6 +5428,13 @@ def main():
     colour = opts["room0"]["kernel1_colour"]
 
     phase_done("15")
+    # 16. the product tools of mneslam_tpu_torch/tools/
+    tools = tools_phase(card)
+    if not (tools["scatter_add_rows"] and tools["corr_window"]):
+        raise SystemExit(f"the tools launched kernel 1 or 2 no time: "
+                         f"{json.dumps(tools['launches'])}")
+
+    phase_done("16")
     log(f"seconds by phase: "
         f"{json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
 
@@ -5145,7 +5460,11 @@ def main():
                              "options_parity": {
                                  f"{r['sampler']}_{r['render_dtype']}":
                                      r["scatter_add_rows"]
-                                 for r in opts["parity"]}},
+                                 for r in opts["parity"]},
+                             "tools": tools["scatter_add_rows"],
+                             "tools_by_tool": {
+                                 k: v["scatter_add_rows"]
+                                 for k, v in tools["launches"].items()}},
         "colour_planes": {
             "timed_as": "sum of one room0 iteration's 6 colour-plane calls "
                         "(c_planes_res 0.08 / 0.02)",
@@ -5190,7 +5509,9 @@ def main():
          "oracle_backend": b_launches["corr_window"], "mapping": 0,
          "multiagent": ma_launches["corr_window"],
          "tum_files": tum["launches"]["corr_window"],
-         **shard["corr_launches"]},
+         **shard["corr_launches"], "tools": tools["corr_window"],
+         "tools_by_tool": {k: v["corr_window"]
+                           for k, v in tools["launches"].items()}},
         CORR_RTOL, **probes["corr_window"],
         probe_launches=probe_launches["corr_window"],
         frontend_update_ms=upd_ms, frontend_update_device_ms=upd_dev_ms,
@@ -5235,8 +5556,8 @@ def main():
     if unmeasured:
         raise SystemExit(f"kernel numbers not measured: {unmeasured}")
     log(f"chip_smoke.py {time.perf_counter() - t_all:.1f} s in all, the "
-        f"build included (before phase 15: 801.2 s, phase 14 164.6 s; "
-        f"PERF.md section 6)")
+        f"build included (before phase 16: 816.6 s and 898.0 s on the same "
+        f"code; PERF.md section 6)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

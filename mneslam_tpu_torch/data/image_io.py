@@ -240,9 +240,14 @@ def imread_unchanged(path: str) -> np.ndarray:
 
 
 def imread_color(path: str) -> np.ndarray:
-    """RGB float32 [H, W, 3] in [0, 1]: `cv2.imread(path)` (3 channels,
-    8 bits: a gray image repeated, alpha dropped, 16-bit samples shifted
-    right by 8) in RGB order, divided by 255."""
+    """RGB float32 [H, W, 3] in [0, 1]: `imread_color_u8` divided by 255."""
+    return imread_color_u8(path).astype(np.float32) / 255.0
+
+
+def imread_color_u8(path: str) -> np.ndarray:
+    """RGB uint8 [H, W, 3]: `cv2.imread(path)` (3 channels, 8 bits: a gray
+    image repeated, alpha dropped, 16-bit samples shifted right by 8) in
+    RGB order."""
     if is_png(path):
         img = read_png(path)
         if img.dtype == np.uint16:
@@ -256,7 +261,7 @@ def imread_color(path: str) -> np.ndarray:
         if img is None:
             raise FileNotFoundError(f"cv2 could not read {path}")
         rgb = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
-    return rgb.astype(np.float32) / 255.0
+    return np.ascontiguousarray(rgb)
 
 
 def imread_depth(path: str) -> np.ndarray:

@@ -38,7 +38,16 @@ class SyntheticBoxDataset:
 
     Items: frame_id, c2w [4,4] (OpenGL), rgb [H,W,3] in [0,1], depth [H,W]
     (z-buffer, meters), direction [H,W,3] — numpy float32 arrays, the same
-    dict as the JAX package's datasets."""
+    dict as the JAX package's datasets.
+
+    Each frame is rendered once and kept: a SLAM run reads a frame several
+    times (tracking, mapping, the trajectory filler, the pose table and
+    the observed space at terminate), and ray-casting a 680 x 1200 frame
+    on the host costs about as much as mapping it. The cost is host memory:
+    about 13 MB a frame at 680 x 1200 (rgb and depth in float32), about
+    1 GB for 80 frames. Every call returns a fresh dict (callers set its
+    keys, e.g. "frame_id"), and its arrays, shared with the memo, are
+    read-only."""
 
     def __init__(self, config, num_frames: int = 24, half: float = 2.0):
         cam = config["cam"]
@@ -52,6 +61,8 @@ class SyntheticBoxDataset:
         n_pix = config["mapping"].get("n_pixels", 0.05)
         self.num_rays_to_save = int(self.H * self.W * n_pix)
         self.poses = [self.c2w(i) for i in range(num_frames)]
+        self.rays_d_cam.setflags(write=False)
+        self._frames: Dict[int, tuple] = {}
 
     def c2w(self, idx: int) -> np.ndarray:
         """Smooth yaw rotation + small circular translation."""
@@ -91,10 +102,16 @@ class SyntheticBoxDataset:
         return self.num_frames
 
     def __getitem__(self, idx: int) -> Dict:
-        rgb, depth, c2w = self.render_frame(idx)
+        if idx not in self._frames:
+            rgb, depth, c2w = self.render_frame(idx)
+            arrays = (c2w.astype(np.float32), rgb, depth)
+            for a in arrays:
+                a.setflags(write=False)
+            self._frames[idx] = arrays
+        c2w, rgb, depth = self._frames[idx]
         return {
             "frame_id": idx,
-            "c2w": c2w.astype(np.float32),
+            "c2w": c2w,
             "rgb": rgb,
             "depth": depth,
             "direction": self.rays_d_cam,

@@ -39,7 +39,11 @@ def test_every_module_imports_without_jax():
               "agents.runner", "cli", "data.image_io", "data.datasets",
               "tools.validate_dataset", "tools.eval_ate",
               "tools.import_weights", "parallel.mesh", "parallel.fleet",
-              "ops.hashgrid", "ops.encodings"):
+              "ops.hashgrid", "ops.encodings", "tools.eval_synthetic",
+              "tools.eval_slam_synthetic",
+              "tools.eval_multiagent_synthetic", "tools.flow_loop_detect",
+              "tools.create_virtual_cameras", "tools.trace_ops",
+              "tools.vis_cameras", "tools.visualizer"):
         assert f"mneslam_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"

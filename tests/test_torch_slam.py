@@ -76,6 +76,29 @@ def test_synthetic_frames_match_jax(tmp_path):
                                        err_msg=k)
 
 
+def test_synthetic_frames_are_rendered_once(tmp_path):
+    """The box room keeps each rendered frame: a second read returns the
+    same arrays, read-only (a write raises), in a fresh dict each call, and
+    the items still equal the JAX package's."""
+    cfg = pconfig.make_config(_overrides(tmp_path))
+    ds = SyntheticBoxDataset(cfg, num_frames=5)
+    jds = JSyntheticBox(jconfig.make_config(_overrides(tmp_path)),
+                        num_frames=5)
+    first, second = ds[2], ds[2]
+    assert first is not second
+    second["frame_id"] = 99
+    assert ds[2]["frame_id"] == 2
+    ref = jds[2]
+    for k in ("c2w", "rgb", "depth", "direction"):
+        assert second[k] is first[k]
+        assert not second[k].flags.writeable
+        with pytest.raises(ValueError, match="read-only"):
+            second[k][0] = 0
+        np.testing.assert_allclose(second[k], ref[k], rtol=1e-5, atol=1e-6,
+                                   err_msg=k)
+    np.testing.assert_array_equal(ds[2]["depth"], ds.render_frame(2)[1])
+
+
 def test_mapping_only_pipeline(port_run):
     cfg, ds, slam, metrics = port_run
     assert len(metrics) == 3  # frames 0, 3, 6
